@@ -5,6 +5,12 @@ import jax.numpy as jnp
 from repro.core import SparseTensor
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one "
+        "(run on the card with `-m cuda`)")
+
+
 def exact_lowrank_tensor(dims, true_rank, key):
     """Fully-observed nonneg low-rank tensor in COO form (every cell a
     'non-zero').
