@@ -20,19 +20,37 @@ Phases; any failure raises and exits non-zero:
    1e-4, atol 1e-3), and beside ``torch.matmul(a.T, a)`` as the library's
    yardstick (timed here only; the port never calls it).  Then the
    steady-state time of one mode's epilogue (the work after its MTTKRP).
-4. The main path: ``repro_torch.methods.fit(t, 35, method="cp_als",
+4. K3, MTTKRP on the linearized workspace: ``build_linearized`` of the
+   full yelp tensor with sort mode 0 (its row field straddles the two
+   32-bit words) and sort mode 1 (its row field lies in the high word),
+   the host build timed.  On each sort mode the kernel against its plain
+   version (float32 at 1e-4, bfloat16 at 5e-2) and against K1 on that
+   mode's CSF (1e-4: the same function on another layout), timed beside
+   its bound (12 B a stored entry, the gathered factors, the output).
+5. The main path: ``repro_torch.methods.fit(t, 35, method="cp_als",
    impl="cuda", niters=20, timers=...)`` on yelp, with every launch count
    set to 0 just before and read just after: MTTKRP must launch 3 modes x
-   20 iterations = 60 times; SYRK none, since the driver keeps ``A.T @ A``
-   as the reference's does.  Against the plain ``impl="segment"`` run from
+   20 iterations = 60 times, K3 and SYRK none (the driver keeps ``A.T @ A``
+   as the reference's does).  Against the plain ``impl="segment"`` run from
    the same initial factors, its fit must agree within 1e-5, and lambda and
    each factor within a relative 3e-2: the kernel's float atomics reorder
    its sums, and the ALS solves against the Grams' hadamard product
    amplify that to a relative 1e-3 to 7e-3 already.
-5. The Gram entry point, SYRK's path: ``gram(a, impl="cuda")`` on the
+6. The linearized path: the same fit with ``impl="linearized_cuda"`` from
+   the same state, the counts set to 0 just before: K3 launches 20 times
+   (the sort mode, once an iteration; the other modes decode and
+   ``index_add_``), K1 and SYRK none; held to ``segment`` as in phase 5.
+   Its routine times print beside the CSF fit's.
+7. The measured planner: ``plan_decomposition(t, "auto", rank=35,
+   calibrate=True, autotune=<temporary store>)`` prints each mode's
+   measured ms per candidate and the winner; a second plan on the same
+   store (its content key and stats pass timed apart) must be ``"measured-cached"`` on every mode with the same impls,
+   3 store hits and no timing run; a 20-iteration fit with that plan is
+   held to ``segment``'s fit within 1e-5.
+8. The Gram entry point, SYRK's path: ``gram(a, impl="cuda")`` on the
    fitted factors, with the counts set to 0 just before; 3 launches, and
    the model's norm from those Grams within 1e-4 of the plain Grams'.
-6. One JSON line of kernel numbers, then, as the last line,
+9. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -46,6 +64,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -112,12 +131,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.core import build_all_modes, init_factors, paper_dataset
+    from repro_torch.core import (build_all_modes, build_linearized,
+                                  init_factors, paper_dataset)
     from repro_torch.core.cpals import (ROUTINES_FUSED, CPALSState,
                                         _mode_epilogue)
     from repro_torch.core.gram import gram, kruskal_norm_sq
-    from repro_torch.kernels import _build, mttkrp_cuda, ops, ref, syrk_cuda
+    from repro_torch.kernels import (_build, linearized_cuda, mttkrp_cuda, ops,
+                                     ref, syrk_cuda)
     from repro_torch.methods import fit
+    from repro_torch.core.csf import DEFAULT_BLOCK, DEFAULT_ROW_TILE
+    from repro_torch.ingest import content_key
+    from repro_torch.plan import AutotuneStore, plan_decomposition, tensor_stats
+
+    counters = {"mttkrp": mttkrp_cuda.mttkrp, "syrk": syrk_cuda.syrk,
+                "mttkrp_lin": linearized_cuda.mttkrp}
+
+    def zero_counts() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts() -> dict[str, int]:
+        return {name: fn.launches for name, fn in counters.items()}
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -215,65 +249,165 @@ def main() -> int:
     print("[epilogue] ms per mode: "
           + " ".join(f"{ms:.4f}" for ms in epilogue_ms))
 
-    # --- 4. the main path ---------------------------------------------------
+    # --- 4. K3: MTTKRP on the linearized workspace ------------------------
+    k3 = {"max_abs_err": 0.0}
+    for sm in (0, 1):
+        t0 = time.perf_counter()
+        lin = build_linearized(t, sort_mode=sm)
+        torch.cuda.synchronize()
+        lin_s = time.perf_counter() - t0
+        print(f"[K3] sort mode {sm}: widths={lin.widths} "
+              f"offsets={lin.offsets} padded nnz={lin.padded_nnz} "
+              f"blocks={lin.num_blocks} host build {lin_s:.3f} s")
+        got = ops.mttkrp_lin(lin, factors, sm)
+        err = max_err(torch, got, ref.mttkrp_lin_ref(lin, factors, sm),
+                      rtol=1e-4, atol=1e-4, what=f"K3 sort mode {sm} float32")
+        err_k1 = max_err(torch, got, ops.mttkrp(csfs[sm], factors),
+                         rtol=1e-4, atol=1e-4, what=f"K3 vs K1 mode {sm}")
+        fb = tuple(a.bfloat16() for a in factors)
+        err_bf16 = max_err(torch, ops.mttkrp_lin(lin, fb, sm),
+                           ref.mttkrp_lin_ref(lin, fb, sm).bfloat16(),
+                           rtol=5e-2, atol=5e-2,
+                           what=f"K3 sort mode {sm} bfloat16")
+        ms = time_ms(torch, lambda: ops.mttkrp_lin(lin, factors, sm))
+        plain_ms = time_ms(torch,
+                           lambda: ref.mttkrp_lin_ref(lin, factors, sm))
+        nbytes = (lin.padded_nnz * 12
+                  + sum(t.dims[m] * RANK * 4 for m in range(t.order)
+                        if m != sm)
+                  + t.dims[sm] * RANK * 4)
+        ops_count = lin.padded_nnz * RANK * t.order
+        b_ms, b_by = bound(nbytes, ops_count)
+        print(f"[K3] sort mode {sm} err f32={err:.3e} vs K1={err_k1:.3e} "
+              f"bf16={err_bf16:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        if sm == 0:  # the sort mode the linearized fit runs
+            k3.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del lin, got
+
+    # --- 5. the main path ---------------------------------------------------
     init = init_factors(t.dims, RANK, args.seed + 2, device=dev)
     zero = torch.tensor(0.0, device=dev)
     state = CPALSState(init, torch.ones(RANK, device=dev), zero, zero,
                        torch.tensor(0, dtype=torch.int32))
-    timers: dict[str, float] = {}
-    mttkrp_cuda.mttkrp.launches = 0
-    syrk_cuda.syrk.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dec = fit(t, RANK, method="cp_als", impl="cuda", niters=NITERS,
-              timers=timers, fused_epilogue=True, state=state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"mttkrp": mttkrp_cuda.mttkrp.launches,
-                "syrk": syrk_cuda.syrk.launches}
-    want_launches = {"mttkrp": t.order * NITERS, "syrk": 0}
-    print(f"[fit] impl=cuda fit={float(dec.fit):.7f} wall_s={wall:.4f} "
-          f"launches={launches} "
-          + " ".join(f"{k}_s={timers.get(k, 0.0):.4f}"
-                     for k in ROUTINES_FUSED))
-    if launches != want_launches:
-        raise AssertionError(f"main path launches {launches}, expected "
-                             f"{want_launches}")
-    for m, a in enumerate(dec.factors):
-        if tuple(a.shape) != (t.dims[m], RANK) or not torch.isfinite(a).all():
-            raise AssertionError(f"factor {m}: shape {tuple(a.shape)} or "
-                                 "non-finite values")
+    def timed_fit(impl: str, want_launches: dict[str, int]):
+        """One 20-iteration timed fit from ``state``, launch counts set to
+        0 just before and checked just after."""
+        timers: dict[str, float] = {}
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec = fit(t, RANK, method="cp_als", impl=impl, niters=NITERS,
+                  timers=timers, fused_epilogue=True, state=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"[fit] impl={impl} fit={float(dec.fit):.7f} wall_s={wall:.4f}"
+              f" launches={counts} "
+              + " ".join(f"{k}_s={timers.get(k, 0.0):.4f}"
+                         for k in ROUTINES_FUSED))
+        if counts != want_launches:
+            raise AssertionError(f"impl={impl} launches {counts}, expected "
+                                 f"{want_launches}")
+        for m, a in enumerate(dec.factors):
+            if (tuple(a.shape) != (t.dims[m], RANK)
+                    or not torch.isfinite(a).all()):
+                raise AssertionError(f"impl={impl} factor {m}: shape "
+                                     f"{tuple(a.shape)} or non-finite values")
+        return dec, dict(timers, wall=wall), counts
+
+    def check_against_segment(dec, what: str, factors_too: bool = True):
+        fit_got, fit_seg = float(dec.fit), float(dec_seg.fit)
+        fit_diff = abs(fit_got - fit_seg)
+        lmbda_rel, factor_rel = rel_diffs(torch, dec, dec_seg)
+        print(f"[fit] {what} vs segment fit={fit_seg:.7f} "
+              f"|diff|={fit_diff:.3e} lambda rel={lmbda_rel:.3e} factor rel="
+              + " ".join(f"{r:.3e}" for r in factor_rel))
+        if not math.isfinite(fit_got) or fit_diff > 1e-5:
+            raise AssertionError(f"{what}: fit {fit_got} vs segment {fit_seg}")
+        if factors_too and (lmbda_rel > 3e-2 or max(factor_rel) > 3e-2):
+            raise AssertionError(f"{what}: lambda or a factor differs from "
+                                 "segment's by more than a relative 3e-2")
+
+    dec, csf_times, launches = timed_fit(
+        "cuda", {"mttkrp": t.order * NITERS, "syrk": 0, "mttkrp_lin": 0})
     dec_seg = fit(t, RANK, method="cp_als", impl="segment", niters=NITERS,
                   state=state)
-    fit_cuda, fit_seg = float(dec.fit), float(dec_seg.fit)
-    fit_diff = abs(fit_cuda - fit_seg)
-    lmbda_rel, factor_rel = rel_diffs(torch, dec, dec_seg)
-    print(f"[fit] impl=segment fit={fit_seg:.7f} |diff|={fit_diff:.3e} "
-          f"lambda rel={lmbda_rel:.3e} factor rel="
-          + " ".join(f"{r:.3e}" for r in factor_rel))
-    if not math.isfinite(fit_cuda) or fit_diff > 1e-5:
-        raise AssertionError(f"fit {fit_cuda} vs segment {fit_seg}")
-    if lmbda_rel > 3e-2 or max(factor_rel) > 3e-2:
-        raise AssertionError("lambda or a factor differs from segment's by "
-                             "more than a relative 3e-2")
+    check_against_segment(dec, "impl=cuda")
 
-    # --- 5. the Gram entry point: SYRK on the fitted model ------------------
-    mttkrp_cuda.mttkrp.launches = 0
-    syrk_cuda.syrk.launches = 0
+    # --- 6. the linearized path ---------------------------------------------
+    dec_lin, lin_times, lin_launches = timed_fit(
+        "linearized_cuda", {"mttkrp": 0, "syrk": 0, "mttkrp_lin": NITERS})
+    check_against_segment(dec_lin, "impl=linearized_cuda")
+    launches["mttkrp_lin"] = lin_launches["mttkrp_lin"]
+    print("[fit] routine s (csf cuda | linearized_cuda): "
+          + " ".join(f"{k}={csf_times[k]:.4f}|{lin_times[k]:.4f}"
+                     for k in ("sort", "mttkrp", "epilogue", "wall")))
+
+    # --- 7. the measured planner ------------------------------------------
+    # a store hit returns the stored table without timing anything, so 3
+    # hits and no new miss on the second plan mean no timing run
+    with tempfile.TemporaryDirectory(prefix="autotune-") as root:
+        store = AutotuneStore(root)
+        t0 = time.perf_counter()
+        plan = plan_decomposition(t, "auto", rank=RANK, calibrate=True,
+                                  autotune=store)
+        print(f"[plan] calibrated in {time.perf_counter() - t0:.3f} s")
+        for p in plan.modes:
+            print(f"[plan] mode {p.mode} {p.source} winner={p.impl} ms: "
+                  + " ".join(f"{k}={v:.4f}" for k, v in p.costs.items()))
+        # the second plan's host work, split: the tensor's content key,
+        # the per-mode stats pass, then the plan from the store
+        t0 = time.perf_counter()
+        key = content_key(t, block=DEFAULT_BLOCK, row_tile=DEFAULT_ROW_TILE)
+        key_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = tensor_stats(t, block=DEFAULT_BLOCK,
+                             row_tile=DEFAULT_ROW_TILE)
+        stats_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = plan_decomposition(t, "auto", rank=RANK, calibrate=True,
+                                   autotune=store, tensor_key=key,
+                                   stats=stats)
+        print(f"[plan] second plan: content key {key_s:.3f} s, stats "
+              f"{stats_s:.3f} s, plan {time.perf_counter() - t0:.3f} s: "
+              f"sources={[p.source for p in again.modes]} "
+              f"impls={again.impls} hits={store.hits} misses={store.misses}")
+    if (any(p.source != "measured-fresh" for p in plan.modes)
+            or set(plan.modes[0].costs) != {
+                "cuda", "gather_scatter", "linearized", "linearized_cuda",
+                "segment"}):
+        raise AssertionError("the first calibrated plan was not measured "
+                             "over every candidate")
+    if (any(p.source != "measured-cached" for p in again.modes)
+            or again.impls != plan.impls or store.hits != t.order
+            or store.misses != t.order):
+        raise AssertionError("the second plan did not come from the store")
+    zero_counts()
+    dec_plan = fit(t, RANK, method="cp_als", plan=again, niters=NITERS,
+                   state=state)
+    print(f"[plan] fit with the plan {again.summary()}: launches "
+          f"{read_counts()}")
+    check_against_segment(dec_plan, "calibrated plan", factors_too=False)
+
+    # --- 8. the Gram entry point: SYRK on the fitted model ------------------
+    zero_counts()
     model_sq = float(kruskal_norm_sq(
         dec.lmbda, [gram(a, impl="cuda") for a in dec.factors]))
-    launches["syrk"] = syrk_cuda.syrk.launches
+    gram_counts = read_counts()
+    launches["syrk"] = gram_counts["syrk"]
     want_sq = float(kruskal_norm_sq(dec.lmbda,
                                     [gram(a) for a in dec.factors]))
-    print(f"[gram] launches={launches['syrk']} model norm^2={model_sq:.6e}"
+    print(f"[gram] launches={gram_counts} model norm^2={model_sq:.6e}"
           f" plain={want_sq:.6e}")
-    if launches["syrk"] != t.order or mttkrp_cuda.mttkrp.launches != 0:
-        raise AssertionError(f"Gram path launched SYRK {launches['syrk']} "
-                             f"times, expected {t.order}")
+    if gram_counts != {"mttkrp": 0, "syrk": t.order, "mttkrp_lin": 0}:
+        raise AssertionError(f"Gram path launches {gram_counts}, expected "
+                             f"{t.order} SYRK and nothing else")
     if not abs(model_sq - want_sq) <= 1e-4 * abs(want_sq):
         raise AssertionError(f"model norm^2 {model_sq} vs plain {want_sq}")
 
-    # --- 6. results ---------------------------------------------------------
+    # --- 9. results ---------------------------------------------------------
     kernels = [
         {"name": "mttkrp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mttkrp.cu",
@@ -293,9 +427,18 @@ def main() -> int:
          "bound_by": ("bytes" if k2["bytes_ms"] >= k2["ops_ms"]
                       else "operations"),
          "library_ms": k2["library_ms"]},
+        {"name": "mttkrp_lin", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/linearized.cu",
+         "replaces": "src/repro/kernels/linearized_pallas.py:34",
+         "launches": launches["mttkrp_lin"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
     ]
-    print(f"[note] build {build_s:.3f} s; times: one call a mode, summed; "
-          "launches: mttkrp in fit(), syrk in gram(impl='cuda')")
+    print(f"[note] build {build_s:.3f} s; times: one call for each mode the "
+          "main path runs, summed (mttkrp_lin: sort mode 0); launches: "
+          "mttkrp in fit(impl='cuda'), mttkrp_lin in "
+          "fit(impl='linearized_cuda'), syrk in gram(impl='cuda')")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

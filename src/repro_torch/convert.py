@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.coo import DeviceLike, SparseTensor, resolve_device
 from repro_torch.core.cpals import CPALSState, CPDecomp
 from repro_torch.core.csf import CSF
+from repro_torch.core.linearized import Linearized
 
 
 def sparse_tensor_from_numpy(inds, vals, dims: Sequence[int], nnz: int,
@@ -38,6 +39,28 @@ def csf_from_numpy(mode: int, row_ids, other_ids, vals, block_tile,
                block_tile=ids(block_tile),
                dims=tuple(int(d) for d in dims), nnz=int(nnz),
                block=int(block), row_tile=int(row_tile))
+
+
+def linearized_from_numpy(hi, lo, vals, block_tile, dims: Sequence[int],
+                          nnz: int, block: int, row_tile: int,
+                          sort_mode: int, device: DeviceLike = None
+                          ) -> Linearized:
+    """A linearized workspace from the packed words as numpy uint32 (or
+    int32) arrays; the port keeps the same bits as int32."""
+    dev = resolve_device(device)
+
+    def words(a):
+        a = np.ascontiguousarray(np.array(a))
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.as_tensor(a, device=dev).to(torch.int32)
+
+    return Linearized(hi=words(hi), lo=words(lo),
+                      vals=torch.as_tensor(np.array(vals), device=dev),
+                      block_tile=words(block_tile),
+                      dims=tuple(int(d) for d in dims), nnz=int(nnz),
+                      block=int(block), row_tile=int(row_tile),
+                      sort_mode=int(sort_mode))
 
 
 def cpals_state_from_numpy(factors, lmbda, fit, fit_prev, iteration: int,

@@ -3,9 +3,11 @@
 from .coo import (PAPER_DATASETS, SparseTensor, dedupe, from_factors,
                   paper_dataset, random_sparse, resolve_device)
 from .csf import (CSF, build_all_modes, build_csf, build_csf_loop_reference)
+from .linearized import Linearized, build_linearized
 from .mttkrp import (REGISTRY, ImplSpec, available_impls, get_impl,
                      mttkrp, mttkrp_cuda, mttkrp_dense,
-                     mttkrp_gather_scatter, mttkrp_rowloop, mttkrp_segment,
+                     mttkrp_gather_scatter, mttkrp_linearized,
+                     mttkrp_linearized_cuda, mttkrp_rowloop, mttkrp_segment,
                      register_impl)
 from .gram import (CHOLESKY_RIDGE, column_norms, gram, hadamard_grams,
                    kruskal_fit, kruskal_inner, kruskal_norm_sq, normalize,
@@ -17,8 +19,10 @@ __all__ = [
     "PAPER_DATASETS", "SparseTensor", "dedupe", "from_factors",
     "paper_dataset", "random_sparse", "resolve_device",
     "CSF", "build_all_modes", "build_csf", "build_csf_loop_reference",
+    "Linearized", "build_linearized",
     "REGISTRY", "ImplSpec", "available_impls", "get_impl", "mttkrp",
-    "mttkrp_cuda", "mttkrp_dense", "mttkrp_gather_scatter", "mttkrp_rowloop",
+    "mttkrp_cuda", "mttkrp_dense", "mttkrp_gather_scatter",
+    "mttkrp_linearized", "mttkrp_linearized_cuda", "mttkrp_rowloop",
     "mttkrp_segment", "register_impl",
     "CHOLESKY_RIDGE", "column_norms", "gram", "hadamard_grams",
     "kruskal_fit", "kruskal_inner", "kruskal_norm_sq", "normalize",

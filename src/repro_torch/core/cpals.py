@@ -27,6 +27,7 @@ import torch
 from .coo import (DeviceLike, GeneratorLike, SparseTensor, make_generator,
                   resolve_device)
 from .csf import build_csf
+from .linearized import build_linearized
 from .gram import (gram, hadamard_grams, kruskal_fit, normalize,
                    solve_cholesky, solve_gram)
 from .mttkrp import mttkrp
@@ -92,23 +93,28 @@ def build_workspace(t: SparseTensor, plan, *, block: int = 512,
                     row_tile: int = 128) -> list:
     """One prebuilt structure per mode (SPLATT's ALLMODE policy): the CSF
     workspace for a "csf" mode, the COO tensor itself for a "coo" mode.
-    ``plan`` is a DecompPlan or an impl name."""
+    All "lin" modes share ONE linearized workspace: the format's point is a
+    single resident buffer and a single sort for every mode.  ``plan`` is a
+    DecompPlan or an impl name."""
     if isinstance(plan, str):
         from repro_torch.plan import plan_decomposition
 
         plan = plan_decomposition(t, plan, block=block, row_tile=row_tile,
                                   with_stats=plan == "auto")
+    lin = None
     ws = []
     for p in plan.modes:
         if p.layout == "csf":
             ws.append(build_csf(t, p.mode, block=p.block,
                                 row_tile=p.row_tile))
+        elif p.layout == "lin":
+            if lin is None:
+                lin = build_linearized(t, block=p.block, row_tile=p.row_tile)
+            ws.append(lin)
         elif p.layout == "coo":
             ws.append(t)
         else:
-            raise NotImplementedError(
-                f"workspace layout {p.layout!r} is not ported to repro_torch "
-                "yet")
+            raise ValueError(f"unknown workspace layout {p.layout!r}")
     return ws
 
 

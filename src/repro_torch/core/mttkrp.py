@@ -16,10 +16,21 @@ impl                what it reproduces
 ``cuda``            the hand-written Hopper kernel (kernels/csrc/mttkrp.cu),
                     in the registry slot the TPU ``pallas`` impl holds; its
                     plain version on a CPU tensor.
+``linearized``      the ALTO-style mode-agnostic workspace
+                    (core/linearized.py): one bit-packed sorted index serves
+                    every mode.  The sort mode runs the no-lock segment
+                    reduction; other modes decode and ``index_add_``.
+``linearized_cuda`` the linearized workspace on the hand-written kernel
+                    (kernels/csrc/linearized.cu, decode inside the kernel)
+                    on its sort mode, in the ``linearized_pallas`` slot;
+                    the other modes decode and ``index_add_`` as above.
 ``dense``           dense einsum oracle (tests only).
 ==================  =========================================================
 
-The ``linearized`` impls are not ported yet.
+The CSF impls take the per-mode :class:`~repro_torch.core.csf.CSF` (layout
+``"csf"``), ``gather_scatter``/``rowloop``/``dense`` also run off COO, and
+the ``linearized*`` impls take the one :class:`~repro_torch.core.linearized.
+Linearized` workspace that every mode shares (layout ``"lin"``).
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import torch
 
 from .coo import SparseTensor
 from .csf import CSF
+from .linearized import Linearized
 
 Tensor = torch.Tensor
 
@@ -145,6 +157,53 @@ def mttkrp_cuda(csf: CSF, factors: Sequence[Tensor],
 
 
 # ---------------------------------------------------------------------------
+# linearized: ALTO-style mode-agnostic bit-packed workspace (every mode from
+# one resident buffer; see core/linearized.py for the format)
+# ---------------------------------------------------------------------------
+
+
+def _require_lin(ws) -> Linearized:
+    if not isinstance(ws, Linearized):
+        raise TypeError(
+            "linearized impls need a Linearized workspace "
+            "(build_linearized(t)); got " + type(ws).__name__)
+    return ws
+
+
+def mttkrp_linearized(ws, factors: Sequence[Tensor], mode: int) -> Tensor:
+    """Any mode from the one linearized workspace, in plain PyTorch.
+
+    Coordinates are decoded from the packed words.  On the sort mode the
+    stream is ordered by the output row (padding keeps it non-decreasing),
+    so a sorted segment reduction applies; the other modes scatter-add with
+    ``index_add_`` (the atomic regime) at no extra memory and no re-sort."""
+    lin = _require_lin(ws)
+    prod = lin.vals[:, None].to(factors[0].dtype)
+    for m in range(lin.order):
+        if m != mode:
+            prod = prod * factors[m][lin.decode(m)]
+    rows = lin.decode(mode)
+    if mode == lin.sort_mode:
+        lengths = torch.bincount(rows, minlength=lin.dims[mode])
+        return torch.segment_reduce(prod, "sum", lengths=lengths, axis=0,
+                                    unsafe=True)
+    out = torch.zeros((lin.dims[mode], prod.shape[1]), dtype=prod.dtype,
+                      device=prod.device)
+    return out.index_add_(0, rows, prod)
+
+
+def mttkrp_linearized_cuda(ws, factors: Sequence[Tensor],
+                           mode: int) -> Tensor:
+    """The linearized workspace on the hand-written kernel on its sort mode
+    (its plain version on a CPU tensor), the plain decode and scatter on
+    the other modes: ``kernels.ops.mttkrp_lin``."""
+    lin = _require_lin(ws)
+    from repro_torch.kernels import ops as kops  # kernels import core
+
+    return kops.mttkrp_lin(lin, factors, mode)
+
+
+# ---------------------------------------------------------------------------
 # cost models (relative per-iteration work; consumed by the planner)
 # ---------------------------------------------------------------------------
 #
@@ -179,6 +238,29 @@ def _cost_rowloop(stats, rank: int) -> float:
     return stats.nnz * rank * stats.order * 1e3  # sequential; never chosen
 
 
+# Integer shift/mask work per coordinate decode, relative to a float
+# gather+multiply unit of the models above.  Strictly positive: on predicted
+# costs the linearized impls price as their sorted/scatter counterparts plus
+# the decode, so they win only through measured (calibrated) costs.
+_DECODE_DISCOUNT = 0.25
+
+
+def _cost_decode(stats, rank: int) -> float:
+    return _DECODE_DISCOUNT * stats.nnz * stats.order
+
+
+def _cost_linearized(stats, rank: int) -> float:
+    # the sort mode runs the segment regime, other modes the scatter regime;
+    # scored per mode, the cheaper of the two, plus the decode
+    base = min(_cost_segment(stats, rank), _cost_gather_scatter(stats, rank))
+    return base + _cost_decode(stats, rank)
+
+
+def _cost_linearized_pallas(stats, rank: int) -> float:
+    base = min(_cost_pallas(stats, rank), _cost_gather_scatter(stats, rank))
+    return base + _cost_decode(stats, rank)
+
+
 # ---------------------------------------------------------------------------
 # the registry
 # ---------------------------------------------------------------------------
@@ -188,7 +270,8 @@ def _cost_rowloop(stats, rank: int) -> float:
 class ImplSpec:
     """One MTTKRP strategy and its declared capabilities.
 
-    layout:       "csf" (unified CSF), "coo" (raw SparseTensor) or "any".
+    layout:       "csf" (unified CSF), "coo" (raw SparseTensor), "lin"
+                  (the shared linearized workspace) or "any" (CSF or COO).
     needs_sorted: whether the impl relies on the workspace's row sort.
     backend:      "any", or the device type ("cuda") the impl is native to;
                   the auto policy only picks it there.
@@ -211,7 +294,7 @@ REGISTRY: dict[str, ImplSpec] = {}
 
 def register_impl(spec: ImplSpec) -> ImplSpec:
     """Add (or replace) an implementation in the registry."""
-    if spec.layout not in ("csf", "coo", "any"):
+    if spec.layout not in ("csf", "coo", "lin", "any"):
         raise ValueError(f"bad layout {spec.layout!r} for impl {spec.name!r}")
     REGISTRY[spec.name] = spec
     return spec
@@ -264,6 +347,14 @@ register_impl(ImplSpec(
     needs_sorted=True, supports_order_gt3=True, backend="cuda",
     cost_model=_cost_pallas))
 register_impl(ImplSpec(
+    name="linearized", fn=mttkrp_linearized, layout="lin",
+    needs_sorted=True, supports_order_gt3=True,
+    cost_model=_cost_linearized))
+register_impl(ImplSpec(
+    name="linearized_cuda", fn=mttkrp_linearized_cuda, layout="lin",
+    needs_sorted=True, supports_order_gt3=True, backend="cuda",
+    cost_model=_cost_linearized_pallas))
+register_impl(ImplSpec(
     name="rowloop", fn=mttkrp_rowloop, layout="coo",
     needs_sorted=False, supports_order_gt3=True, benchmark_only=True,
     cost_model=_cost_rowloop))
@@ -279,9 +370,10 @@ register_impl(ImplSpec(
 
 def mttkrp(x, factors: Sequence[Tensor], mode: int, *,
            impl: str = "segment") -> Tensor:
-    """Dispatch on the registry; ``x`` is a SparseTensor (COO impls) or the
-    per-mode CSF workspace.  ``impl="auto"`` is a planner policy, resolved
-    by ``repro_torch.plan.plan_decomposition`` before this point."""
+    """Dispatch on the registry; ``x`` is a SparseTensor (COO impls), the
+    per-mode CSF workspace or the shared linearized workspace.
+    ``impl="auto"`` is a planner policy, resolved by
+    ``repro_torch.plan.plan_decomposition`` before this point."""
     if impl == "auto":
         raise ValueError(
             "impl='auto' is a planner policy; resolve it with "

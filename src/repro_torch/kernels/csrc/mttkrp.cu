@@ -34,29 +34,9 @@
 //  * No lane padding of the rank.  Threads form groups of R consecutive
 //    lanes, one group per non-zero at a time, so a group's gathers of one
 //    factor row are contiguous.
-#include "common.cuh"
+#include "tile.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxOther = 7;  // tensor order up to 8
-
-struct FactorPtrs {
-  const void* p[kMaxOther];
-};
-
-template <typename TF>
-__device__ __forceinline__ float contribution(const FactorPtrs& factors,
-                                             const int* s_ids, int n_other,
-                                             int n, int r, int rank,
-                                             float val) {
-  float p = val;
-  for (int i = 0; i < n_other; ++i) {
-    const TF* f = static_cast<const TF*>(factors.p[i]);
-    p *= load_f32(f + static_cast<long long>(s_ids[n * n_other + i]) * rank + r);
-  }
-  return p;
-}
 
 template <typename TV, typename TF>
 __global__ void __launch_bounds__(kThreads)
@@ -66,19 +46,9 @@ mttkrp_csf_kernel(const int* __restrict__ rows,
                   const int* __restrict__ block_tile, float* __restrict__ out,
                   int block, int row_tile, int num_rows, int rank) {
   extern __shared__ float smem[];
-  float* acc = smem;                                              // row_tile*rank
-  int* s_local = reinterpret_cast<int*>(acc + row_tile * rank);  // block
-  float* s_val = reinterpret_cast<float*>(s_local + block);      // block
-  int* s_ids = reinterpret_cast<int*>(s_val + block);            // block*n_other
-  __shared__ int s_lo, s_hi;
-
+  const TileSmem s = tile_smem(smem, row_tile, rank, block);
   const long long first = static_cast<long long>(blockIdx.x) * block;
   const int base = block_tile[blockIdx.x] * row_tile;
-  if (threadIdx.x == 0) {
-    s_lo = row_tile;
-    s_hi = -1;
-  }
-  __syncthreads();
 
   // Stage the block's local rows, values and other-mode ids.  The CSF
   // contract puts every row of a block inside its tile; an entry outside it
@@ -87,59 +57,17 @@ mttkrp_csf_kernel(const int* __restrict__ rows,
   for (int n = threadIdx.x; n < block; n += blockDim.x) {
     const int local = rows[first + n] - base;
     const bool inside = local >= 0 && local < row_tile;
-    s_local[n] = inside ? local : -1;
-    s_val[n] = load_f32(vals + first + n);
+    s.local[n] = inside ? local : -1;
+    s.val[n] = load_f32(vals + first + n);
     for (int i = 0; i < n_other; ++i)
-      s_ids[n * n_other + i] = other_ids[(first + n) * n_other + i];
+      s.ids[n * n_other + i] = other_ids[(first + n) * n_other + i];
     if (inside) {
       lo = min(lo, local);
       hi = max(hi, local);
     }
   }
-  atomicMin(&s_lo, lo);
-  atomicMax(&s_hi, hi);
-  __syncthreads();
-  lo = s_lo;
-  hi = s_hi;
-  // only the rows between the block's first and last are touched
-  const int span = hi >= lo ? (hi - lo + 1) * rank : 0;
-  float* acc_lo = acc + (hi >= lo ? lo * rank : 0);
-  for (int e = threadIdx.x; e < span; e += blockDim.x) acc_lo[e] = 0.f;
-  __syncthreads();
-
-  if (rank <= static_cast<int>(blockDim.x)) {
-    const int groups = blockDim.x / rank;
-    const int g = threadIdx.x / rank;
-    const int r = threadIdx.x - g * rank;
-    if (g < groups) {
-      for (int n = g; n < block; n += groups) {
-        const int local = s_local[n];
-        if (local < 0) continue;
-        atomicAdd(&acc[local * rank + r],
-                  contribution<TF>(factors, s_ids, n_other, n, r, rank,
-                                   s_val[n]));
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < block * rank; e += blockDim.x) {
-      const int n = e / rank;
-      const int r = e - n * rank;
-      const int local = s_local[n];
-      if (local < 0) continue;
-      atomicAdd(&acc[local * rank + r],
-                contribution<TF>(factors, s_ids, n_other, n, r, rank,
-                                 s_val[n]));
-    }
-  }
-  __syncthreads();
-
-  // flush the touched rows; rows left at zero need no atomic
-  for (int e = threadIdx.x; e < span; e += blockDim.x) {
-    const float a = acc_lo[e];
-    const int row = base + lo + e / rank;
-    if (a != 0.f && row < num_rows)
-      atomicAdd(out + static_cast<long long>(row) * rank + e % rank, a);
-  }
+  accumulate_and_flush<TF>(s, factors, n_other, lo, hi, block, row_tile,
+                           base, num_rows, rank, out);
 }
 
 template <typename TV, typename TF>
@@ -147,8 +75,7 @@ int launch(const void* rows, const void* other_ids, const void* vals,
            const FactorPtrs& factors, int n_other, const void* block_tile,
            void* out, int nblocks, int block, int row_tile, int num_rows,
            int rank, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(row_tile) * rank +
-                                       static_cast<size_t>(block) * (2 + n_other));
+  const size_t smem = tile_smem_bytes(row_tile, rank, block, n_other);
   auto kernel = mttkrp_csf_kernel<TV, TF>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

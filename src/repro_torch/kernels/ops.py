@@ -12,8 +12,10 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.csf import CSF
+from repro_torch.core.linearized import Linearized
+from repro_torch.core.mttkrp import mttkrp_linearized
 
-from . import mttkrp_cuda, ref, syrk_cuda
+from . import linearized_cuda, mttkrp_cuda, ref, syrk_cuda
 
 
 def mttkrp(csf: CSF, factors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -22,6 +24,24 @@ def mttkrp(csf: CSF, factors: Sequence[torch.Tensor]) -> torch.Tensor:
     if csf.vals.is_cuda:
         return mttkrp_cuda.mttkrp(csf, factors)
     return ref.mttkrp_ref(csf, factors).to(factors[csf.other_modes[0]].dtype)
+
+
+def mttkrp_lin(lin: Linearized, factors: Sequence[torch.Tensor],
+               mode: int) -> torch.Tensor:
+    """MTTKRP for any mode from the linearized workspace: (dims[mode], R)
+    in the factors' dtype.
+
+    The sort mode's stream is ordered and tile-aligned by its output row, so
+    it runs the kernel (its plain version on a CPU tensor).  The other modes
+    have no block -> tile structure; they take the plain decode and
+    ``index_add_`` of ``core.mttkrp.mttkrp_linearized`` on every device, as
+    the reference computes them outside its kernel."""
+    if mode != lin.sort_mode:
+        return mttkrp_linearized(lin, factors, mode)
+    if lin.vals.is_cuda:
+        return linearized_cuda.mttkrp(lin, factors, mode)
+    dtype = factors[next(m for m in range(lin.order) if m != mode)].dtype
+    return ref.mttkrp_lin_ref(lin, factors, mode).to(dtype)
 
 
 def syrk(a: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core.csf import CSF
+from repro_torch.core.linearized import Linearized
 
 
 def mttkrp_ref(csf: CSF, factors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -26,6 +27,19 @@ def mttkrp_ref(csf: CSF, factors: Sequence[torch.Tensor]) -> torch.Tensor:
     out = torch.zeros((csf.num_rows, prod.shape[1]), dtype=torch.float32,
                       device=prod.device)
     return out.index_add_(0, csf.row_ids, prod)
+
+
+def mttkrp_lin_ref(lin: Linearized, factors: Sequence[torch.Tensor],
+                   mode: int) -> torch.Tensor:
+    """Decode, gather, multiply, scatter-add over the linearized workspace,
+    for any mode; float32 result of shape (dims[mode], R)."""
+    prod = lin.vals[:, None].float()
+    for m in range(lin.order):
+        if m != mode:
+            prod = prod * factors[m][lin.decode(m)].float()
+    out = torch.zeros((lin.dims[mode], prod.shape[1]), dtype=torch.float32,
+                      device=prod.device)
+    return out.index_add_(0, lin.decode(mode), prod)
 
 
 def syrk_ref(a: torch.Tensor) -> torch.Tensor:

@@ -1,27 +1,62 @@
 """The decomposition planner: per-mode (layout, impl, tile sizes) selection.
 
-Counterpart of ``repro.plan.planner``, on predicted costs:
+Counterpart of ``repro.plan.planner`` for the MTTKRP family:
 
 * ``"auto"``: for each mode, every registered, capability-compatible impl
-  (``repro_torch.core.mttkrp.available_impls``) is scored with its declared
-  cost model against the measured stats, and the argmin wins.
+  (``repro_torch.core.mttkrp.available_impls``, narrowed by ``allow=``) is
+  scored and the argmin wins.  Scores are the declared cost models'
+  predictions, or with ``calibrate=True`` the impls' measured MTTKRP times
+  on the actual tensor, looked up first in a persistent autotune store
+  (``autotune=``, :mod:`repro_torch.plan.autotune`).
 * any registered impl name pins every mode to that impl.
 
 The backend defaults to the tensor's device type (``"cuda"`` or ``"cpu"``),
-so the ``cuda`` kernel is an ``auto`` candidate only for a tensor on the
-card.  Measured costs (``calibrate=``, ``autotune=``) are not ported yet and
-are refused.
+so the ``cuda`` and ``linearized_cuda`` kernels are ``auto`` candidates
+only for a tensor on the card.  The linearized impls never win on
+predicted costs (``core/mttkrp.py::_DECODE_DISCOUNT``); they reach
+``auto`` through calibration.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+import time
+from typing import Optional, Sequence
+
+import torch
 
 from repro_torch.core.coo import SparseTensor
-from repro_torch.core.csf import DEFAULT_BLOCK, DEFAULT_ROW_TILE
-from repro_torch.core.mttkrp import available_impls, get_impl
+from repro_torch.core.cpals import init_factors
+from repro_torch.core.csf import DEFAULT_BLOCK, DEFAULT_ROW_TILE, build_csf
+from repro_torch.core.linearized import build_linearized, check_bit_budget
+from repro_torch.core.mttkrp import REGISTRY, available_impls, get_impl, mttkrp
 
-from .stats import ModeStats, mode_stats, tensor_stats
+from .autotune import as_store, calibration_key, canonical_candidates
+from .stats import ModeStats, mode_stats, stats_digest, tensor_stats
+
+
+def _kernel_registry(kernel: str) -> dict:
+    """Impl table of a kernel family; only MTTKRP (the CP family) is
+    ported."""
+    if kernel == "mttkrp":
+        return REGISTRY
+    if kernel == "ttmc":
+        raise NotImplementedError(
+            "kernel='ttmc' (Tucker) is not ported to repro_torch yet; it "
+            "comes with the Tucker slice")
+    raise ValueError(f"unknown kernel {kernel!r}; one of ('mttkrp', 'ttmc')")
+
+
+def _fits_lin_budget(t: SparseTensor, names) -> tuple[str, ...]:
+    """Drop linearized-layout candidates when the tensor's dims exceed the
+    64-bit packed-index budget (``core/linearized.check_bit_budget``);
+    CSF/COO candidates remain."""
+    if any(get_impl(n).layout == "lin" for n in names):
+        try:
+            check_bit_budget(t.dims)
+        except ValueError:
+            names = tuple(n for n in names if get_impl(n).layout != "lin")
+    return tuple(names)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,12 +66,16 @@ class ModePlan:
 
     mode: int
     impl: str
-    layout: str            # "csf" (unified workspace) or "coo"
+    layout: str            # "csf" (unified workspace), "lin" or "coo"
     block: int
     row_tile: int
     stats: Optional[ModeStats]
-    costs: dict[str, float]  # candidate impl -> predicted cost
+    costs: dict[str, float]  # candidate impl -> predicted cost or ms
     reason: str
+    # where the costs came from: "predicted" (declared cost models),
+    # "measured-fresh" (timed in this call) or "measured-cached" (loaded
+    # from the autotune store)
+    source: str = "predicted"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,42 +107,132 @@ def _layout_for(impl: str) -> str:
     # "any"-layout impls (gather_scatter) run straight off COO when they are
     # the only consumer of a mode, skipping that mode's sort
     layout = get_impl(impl).layout
-    return "csf" if layout == "csf" else "coo"
+    return layout if layout in ("csf", "lin") else "coo"
 
 
-def _refuse_measured(calibrate: bool, autotune) -> None:
-    if calibrate or autotune is not None:
-        raise NotImplementedError(
-            "measured planning (calibrate=/autotune=) is not ported to "
-            "repro_torch yet; plan on predicted costs (calibrate=False, "
-            "autotune=None)")
+def _measure_ms(fn, *args, iters: int = 3, sync: bool = False) -> float:
+    """Median host-clock ms of ``iters`` calls after one warm-up call;
+    ``sync`` synchronises the card around each call, so the time is the
+    device's work and not its enqueue."""
+    fn(*args)
+    times = []
+    for _ in range(iters):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        if sync:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2] * 1e3
+
+
+def _calibrate_mode(t: SparseTensor, mode: int, names, *, rank: int,
+                    block: int, row_tile: int,
+                    kernel: str = "mttkrp") -> dict[str, float]:
+    """Measured MTTKRP ms of each candidate for one mode on the actual
+    tensor: one workspace build shared by the candidates of each layout,
+    then a median of 3 per candidate."""
+    _kernel_registry(kernel)  # raises for the unported families
+    factors = init_factors(t.dims, rank, 0, dtype=t.vals.dtype,
+                           device=t.device)
+    sync = t.device.type == "cuda"
+    csf = lin = None
+    measured = {}
+    for name in names:
+        layout = get_impl(name).layout
+        if layout == "csf":
+            if csf is None:
+                csf = build_csf(t, mode, block=block, row_tile=row_tile)
+            ws = csf
+        elif layout == "lin":
+            if lin is None:
+                lin = build_linearized(t, block=block, row_tile=row_tile)
+            ws = lin
+        else:
+            ws = t
+        fn = functools.partial(mttkrp, mode=mode, impl=name)
+        measured[name] = _measure_ms(fn, ws, factors, sync=sync)
+    return measured
+
+
+def _measured_costs(t: SparseTensor, mode: int, names, *, rank: int,
+                    block: int, row_tile: int, backend: str, kernel: str,
+                    stats: Optional[ModeStats], autotune, tensor_key,
+                    recalibrate: bool) -> tuple[dict[str, float], str]:
+    """Calibration with the autotune store in front: ``(costs, source)``,
+    ``source`` being ``"measured-cached"`` on a store hit (no timing run)
+    or ``"measured-fresh"`` (timed now and, with a store, kept)."""
+    key = None
+    if autotune is not None and tensor_key is not None:
+        key = calibration_key(
+            tensor_key, mode=mode, names=names, backend=backend, rank=rank,
+            kernel=kernel, block=block, row_tile=row_tile,
+            stats_digest=stats_digest(() if stats is None else (stats,)))
+        if not recalibrate:
+            hit = autotune.load(key)
+            if hit is not None and set(hit["costs"]) == set(names):
+                return dict(hit["costs"]), "measured-cached"
+    costs = _calibrate_mode(t, mode, names, rank=rank, block=block,
+                            row_tile=row_tile, kernel=kernel)
+    if key is not None:
+        autotune.store(key, costs, meta={
+            "mode": mode, "backend": backend, "rank": int(rank),
+            "kernel": kernel, "block": block, "row_tile": row_tile})
+    return costs, "measured-fresh"
 
 
 def plan_mode(t: SparseTensor, mode: int, *, rank: int, backend: str,
-              block: int, row_tile: int, calibrate: bool = False,
-              autotune=None) -> ModePlan:
-    """Score every capability-compatible impl for one mode, pick the
-    argmin of the predicted costs."""
-    _refuse_measured(calibrate, autotune)
-    stats = mode_stats(t, mode, block=block, row_tile=row_tile)
-    names = tuple(sorted(available_impls(order=t.order, backend=backend)))
+              block: int, row_tile: int,
+              allow: Optional[Sequence[str]] = None,
+              calibrate: bool = False,
+              stats: Optional[ModeStats] = None,
+              autotune=None, tensor_key: Optional[str] = None,
+              recalibrate: bool = False) -> ModePlan:
+    """Score every capability-compatible impl for one mode, pick the argmin.
+
+    ``calibrate=True`` scores measured MTTKRP times (ms) on the actual
+    tensor instead of the cost models.  ``stats``: precomputed
+    :class:`ModeStats` for this (block, row_tile), which skips the stats
+    pass.  ``autotune``/``tensor_key``: the store and the tensor's content
+    key; on a hit nothing is timed, and ``recalibrate=True`` times anew and
+    overwrites the entry."""
+    if stats is None:
+        stats = mode_stats(t, mode, block=block, row_tile=row_tile)
+    elif (stats.block, stats.row_tile) != (block, row_tile):
+        raise ValueError(
+            f"precomputed stats were measured for (block={stats.block}, "
+            f"row_tile={stats.row_tile}), planner asked (block={block}, "
+            f"row_tile={row_tile})")
+    names = canonical_candidates(_fits_lin_budget(
+        t, available_impls(order=t.order, backend=backend, allow=allow)))
     if not names:
         raise ValueError(f"no registered mttkrp impl covers order={t.order} "
-                         f"on backend={backend!r}")
-    costs = {}
-    for name in names:
-        spec = get_impl(name)
-        costs[name] = (spec.cost_model(stats, int(rank))
-                       if spec.cost_model is not None else float("inf"))
+                         f"on backend={backend!r} (allow={allow})")
+    if calibrate:
+        costs, source = _measured_costs(
+            t, mode, names, rank=int(rank), block=block, row_tile=row_tile,
+            backend=backend, kernel="mttkrp", stats=stats,
+            autotune=autotune, tensor_key=tensor_key,
+            recalibrate=recalibrate)
+        unit = "ms"
+    else:
+        costs = {}
+        for name in names:
+            spec = get_impl(name)
+            costs[name] = (spec.cost_model(stats, int(rank))
+                           if spec.cost_model is not None else float("inf"))
+        unit, source = "", "predicted"
     winner = min(costs, key=costs.get)
     runner_up = sorted(costs.values())[1] if len(costs) > 1 else float("inf")
     reason = (
         f"{stats.regime} regime (collision={stats.collision_rate:.2f}, "
-        f"padding={stats.padding_overhead:.2f}); predicted cost "
-        f"{costs[winner]:.3g} vs next {runner_up:.3g}")
+        f"padding={stats.padding_overhead:.2f}); {source} cost "
+        f"{costs[winner]:.3g}{unit} vs next {runner_up:.3g}{unit}")
     return ModePlan(mode=mode, impl=winner, layout=_layout_for(winner),
                     block=block, row_tile=row_tile, stats=stats, costs=costs,
-                    reason=reason)
+                    reason=reason, source=source)
 
 
 def plan_decomposition(
@@ -114,40 +243,83 @@ def plan_decomposition(
     backend: Optional[str] = None,
     block: int = DEFAULT_BLOCK,
     row_tile: int = DEFAULT_ROW_TILE,
+    allow: Optional[Sequence[str]] = None,
     calibrate: bool = False,
     with_stats: bool = True,
+    stats: Optional[Sequence[ModeStats]] = None,
     autotune=None,
+    tensor_key: Optional[str] = None,
+    recalibrate: bool = False,
 ) -> DecompPlan:
     """Emit a :class:`DecompPlan` for ``t`` under ``policy``.
 
-    ``policy="auto"`` selects per mode by capability and predicted cost; any
+    ``policy="auto"`` selects per mode by capability and cost; any
     registered impl name pins every mode.  ``backend`` defaults to the
-    tensor's device type.  ``with_stats=False`` skips the stats pass for a
-    fixed policy (auto always measures).
+    tensor's device type; ``allow`` restricts the candidate set (a fixed
+    policy outside it is refused).  ``calibrate=True`` spends planning time
+    on a short timed MTTKRP per candidate per mode, on the actual tensor,
+    and scores those milliseconds.  ``with_stats=False`` skips the stats
+    pass for a fixed policy (auto and calibration always measure);
+    ``stats`` hands in precomputed per-mode statistics.  ``autotune``: an
+    :class:`~repro_torch.plan.autotune.AutotuneStore` or its root path,
+    consulted before any timing run; ``tensor_key`` is the tensor's content
+    key (``repro_torch.ingest.content_key`` when omitted);
+    ``recalibrate=True`` skips the lookup, times every candidate again and
+    overwrites the stored entries.
     """
-    _refuse_measured(calibrate, autotune)
     if backend is None:
         backend = t.device.type
+    if stats is not None and len(stats) != t.order:
+        raise ValueError(f"precomputed stats cover {len(stats)} modes, "
+                         f"tensor has {t.order}")
+    if calibrate and autotune is not None:
+        autotune = as_store(autotune)
+        if tensor_key is None:
+            from repro_torch.ingest.cache import content_key
+
+            tensor_key = content_key(t, block=block, row_tile=row_tile)
     if policy == "auto":
         modes = tuple(
             plan_mode(t, m, rank=rank, backend=backend, block=block,
-                      row_tile=row_tile)
+                      row_tile=row_tile, allow=allow, calibrate=calibrate,
+                      stats=None if stats is None else stats[m],
+                      autotune=autotune, tensor_key=tensor_key,
+                      recalibrate=recalibrate)
             for m in range(t.order))
         return DecompPlan(modes=modes, policy=policy, backend=backend,
                           rank=rank)
 
     spec = get_impl(policy)  # raises with the registry listing if unknown
+    if allow is not None and policy not in allow:
+        raise ValueError(f"impl {policy!r} is not in the allowed set {allow}")
     if t.order > 3 and not spec.supports_order_gt3:
         raise ValueError(
             f"impl {policy!r} does not support order-{t.order} tensors "
             "(capability supports_order_gt3=False)")
-    if with_stats:
+    if stats is not None:
+        for s in stats:
+            if (s.block, s.row_tile) != (block, row_tile):
+                raise ValueError(
+                    f"precomputed stats were measured for (block={s.block}, "
+                    f"row_tile={s.row_tile}), planner asked (block={block}, "
+                    f"row_tile={row_tile})")
+        stats_per_mode = list(stats)
+    elif with_stats or calibrate:
         stats_per_mode = tensor_stats(t, block=block, row_tile=row_tile)
     else:
         stats_per_mode = [None] * t.order
     modes = []
     for m, s in enumerate(stats_per_mode):
-        if s is not None:
+        source = "predicted"
+        if calibrate:
+            costs, source = _measured_costs(
+                t, m, (policy,), rank=int(rank), block=block,
+                row_tile=row_tile, backend=backend, kernel="mttkrp",
+                stats=s, autotune=autotune, tensor_key=tensor_key,
+                recalibrate=recalibrate)
+            reason = (f"fixed policy {policy!r}; {source} "
+                      f"{costs[policy]:.3g}ms")
+        elif s is not None:
             cost = (spec.cost_model(s, int(rank))
                     if spec.cost_model is not None else float("inf"))
             costs = {policy: cost}
@@ -157,6 +329,7 @@ def plan_decomposition(
             reason = f"fixed policy {policy!r} (stats skipped)"
         modes.append(ModePlan(
             mode=m, impl=policy, layout=_layout_for(policy), block=block,
-            row_tile=row_tile, stats=s, costs=costs, reason=reason))
+            row_tile=row_tile, stats=s, costs=costs, reason=reason,
+            source=source))
     return DecompPlan(modes=tuple(modes), policy=policy, backend=backend,
                       rank=rank)

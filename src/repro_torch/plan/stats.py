@@ -11,10 +11,13 @@ A copy of ``repro.plan.stats`` (host-side numpy over the COO indices):
 * ``padding_overhead``: the padding fraction the tiled CSF workspace would
   have for this mode, computed without building it.
 * ``skew`` / ``hot_row_share``: max-row concentration.
+
+``stats_digest`` hashes the measured stats into the autotune store's key.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 
@@ -117,3 +120,13 @@ def tensor_stats(t: SparseTensor, *, block: int,
     """One :class:`ModeStats` per mode (the planner's full evidence set)."""
     return [mode_stats(t, m, block=block, row_tile=row_tile)
             for m in range(t.order)]
+
+
+def stats_digest(stats) -> str:
+    """Short content digest over measured :class:`ModeStats`: part of the
+    autotune store's calibration key, so two tensors whose bytes hash alike
+    but whose measured per-mode statistics differ never share timings."""
+    h = hashlib.sha256()
+    for s in stats:
+        h.update(repr(dataclasses.astuple(s)).encode())
+    return h.hexdigest()[:16]

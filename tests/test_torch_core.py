@@ -294,12 +294,16 @@ def test_plan_policies_and_refusals():
     assert plan_decomposition(pt, "auto", backend="cuda").impls == (
         "cuda",) * 3
     assert mode_stats(pt, 0, block=512, row_tile=128).regime == "contention"
-    with pytest.raises(NotImplementedError, match="calibrate"):
-        plan_decomposition(pt, "auto", calibrate=True)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        plan_decomposition(pt, "segment", autotune="store")
+    calibrated = plan_decomposition(pt, "auto", calibrate=True)
+    assert all(p.source == "measured-fresh" for p in calibrated.modes)
+    assert set(calibrated.modes[0].costs) == set(available_impls(
+        backend="cpu"))
+    # without calibrate= the store is not consulted: predicted costs
+    stored = plan_decomposition(pt, "segment", autotune="store")
+    assert all(p.source == "predicted" for p in stored.modes)
+    assert plan_decomposition(pt, "linearized").layouts == ("lin",) * 3
     with pytest.raises(ValueError, match="unknown impl"):
-        plan_decomposition(pt, "linearized")
+        plan_decomposition(pt, "pallas")
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import torch
 from repro.core.cpals import CPDecomp as JaxCPDecomp
 from repro.methods import fit as jax_fit
 from repro_torch import convert
+from repro_torch.core import Linearized
 from repro_torch.core.coo import PAPER_DATASETS
 from repro_torch.core.cpals import (EPILOGUE_ROUTINES, ROUTINES,
                                     ROUTINES_FUSED, CPALSState, CPDecomp,
@@ -179,8 +180,14 @@ def test_method_registry_and_driver_errors():
         modes=tuple(p.__class__(**{**p.__dict__, "layout": "lin"})
                     for p in plan.modes),
         policy="linearized", backend="cpu", rank=RANK)
-    with pytest.raises(NotImplementedError, match="lin"):
-        build_workspace(pt, lin_plan)
+    ws = build_workspace(pt, lin_plan)
+    assert isinstance(ws[0], Linearized) and all(w is ws[0] for w in ws)
+    bad_plan = plan.__class__(
+        modes=tuple(p.__class__(**{**p.__dict__, "layout": "tns"})
+                    for p in plan.modes),
+        policy="segment", backend="cpu", rank=RANK)
+    with pytest.raises(ValueError, match="layout 'tns'"):
+        build_workspace(pt, bad_plan)
     with pytest.raises(NotImplementedError, match="ingested"):
         fit(object.__new__(type("Ingested", (), {"order": 3})), RANK)
     with pytest.raises(TypeError, match="CPALSState"):

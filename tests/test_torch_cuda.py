@@ -10,8 +10,11 @@ imports no JAX, so the card tests run on a machine without it:
 import pytest
 import torch
 
-from repro_torch.core import build_csf, init_factors, random_sparse
-from repro_torch.kernels import _build, mttkrp_cuda, ops, ref, syrk_cuda
+from repro_torch.core import (SparseTensor, build_csf, build_linearized,
+                              dedupe, init_factors, random_sparse)
+from repro_torch.core.linearized import field_offsets
+from repro_torch.kernels import (_build, linearized_cuda, mttkrp_cuda, ops,
+                                 ref, syrk_cuda)
 
 
 def _tol(skew, dtype):
@@ -33,6 +36,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         syrk_cuda.syrk(f[0])
     assert (mttkrp_cuda.mttkrp.launches, syrk_cuda.syrk.launches) == before
+
+
+def test_linearized_wrapper_refuses_cpu_tensors_and_other_modes():
+    t = random_sparse((30, 20, 10), 300, 0, device="cpu")
+    f = init_factors(t.dims, 4, 1, device="cpu")
+    lin = build_linearized(t, sort_mode=1)
+    before = linearized_cuda.mttkrp.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        linearized_cuda.mttkrp(lin, f, 1)
+    for mode in (0, 2):
+        with pytest.raises(ValueError, match="sort mode 1 only"):
+            linearized_cuda.mttkrp(lin, f, mode)
+    assert linearized_cuda.mttkrp.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -115,3 +131,61 @@ def test_syrk_kernel_matches_plain_on_card(cuda, rows, rank, dtype):
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), ref.syrk_ref(a), rtol=tol,
                                atol=max(tol, 1e-3))
+
+
+# (dims, nnz, sort_mode, rank, block, row_tile, skew, dtype)
+CARD_LIN_CASES = (
+    [((40, 30, 20), 800, 0, r, 128, 64, 0.0, torch.float32)
+     for r in (3, 8, 35, 64, 128, 150)]
+    + [((100, 50, 25), 3000, 0, 16, b, rt, 0.0, torch.float32)
+       for b, rt in ((64, 32), (128, 64), (512, 128))]
+    + [((30, 20, 10), 4000, m, 8, 128, 64, 2.0, torch.float32)
+       for m in range(3)]
+    + [((20, 15, 12, 10), 900, m, 8, 128, 64, 0.0, torch.float32)
+       for m in range(4)]
+    + [((40, 30, 20), 700, 0, 8, 128, 64, 0.0, torch.bfloat16)]
+    # the sort field lies in lo only in every case above (at most 32 bits
+    # in all); at yelp's dims it straddles the words for sort modes 0 and 2
+    # (offsets (31, 17, 0) and (14, 0, 30)) and lies in hi only for sort
+    # mode 1 ((17, 33, 0))
+    + [((41_000, 11_000, 75_000), 20_000, m, 35, 512, 128, 1.5,
+        torch.float32) for m in range(3)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,nnz,mode,rank,block,row_tile,skew,dtype",
+                         CARD_LIN_CASES)
+def test_linearized_kernel_matches_plain_on_card(cuda, dims, nnz, mode,
+                                                 rank, block, row_tile, skew,
+                                                 dtype):
+    t = random_sparse(dims, nnz, 5, skew=skew, device=cuda)
+    f = tuple(a.to(dtype) for a in init_factors(dims, rank, 6, device=cuda))
+    lin = build_linearized(t, block=block, row_tile=row_tile, sort_mode=mode)
+    before = linearized_cuda.mttkrp.launches
+    got = ops.mttkrp_lin(lin, f, mode)
+    torch.cuda.synchronize()
+    assert linearized_cuda.mttkrp.launches == before + 1
+    assert got.dtype == dtype and got.shape == (dims[mode], rank)
+    want = ref.mttkrp_lin_ref(lin, f, mode).to(dtype)
+    tol = _tol(skew, dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_linearized_kernel_with_empty_tiles_on_card(cuda):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    rows = torch.cat([torch.randint(0, 40, (300,), generator=g),
+                      torch.randint(160, 200, (300,), generator=g)])
+    inds = torch.stack([rows, torch.randint(0, 7, (600,), generator=g),
+                        torch.randint(0, 5, (600,), generator=g)], 1)
+    t = dedupe(SparseTensor(inds, torch.rand(600, generator=g) + 0.1,
+                            (200, 7, 5), 600, device=cuda))
+    lin = build_linearized(t, block=32, row_tile=16)
+    assert lin.num_blocks > lin.num_row_tiles  # the empty tiles' padding
+    f = init_factors(t.dims, 12, 8, device=cuda)
+    got = ops.mttkrp_lin(lin, f, 0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.mttkrp_lin_ref(lin, f, 0),
+                               rtol=2e-4, atol=2e-4)
+    assert field_offsets(t.dims, 0)[0] == 6  # the row field: bits [6, 14)
