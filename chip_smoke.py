@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CP-ALS main path on one CUDA card and check it.
+"""Drive the PyTorch port's CP-ALS and Tucker paths on one CUDA card and
+check them.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -50,7 +51,27 @@ Phases; any failure raises and exits non-zero:
 8. The Gram entry point, SYRK's path: ``gram(a, impl="cuda")`` on the
    fitted factors, with the counts set to 0 just before; 3 launches, and
    the model's norm from those Grams within 1e-4 of the plain Grams'.
-9. One JSON line of kernel numbers, then, as the last line,
+9. The TTMc kernels at Kronecker width: K1-TTMc on each mode's CSF of the
+   yelp tensor and K3-TTMc on sort modes 0 and 1, at Tucker ranks
+   (16, 16, 16) (W = 256), each against its plain version (float32 at
+   1e-4, bfloat16 at 5e-2), K3-TTMc also against K1-TTMc on the same
+   mode's CSF, timed beside their bounds; then one thin SVD of mode 2's
+   Y (75 000 x 256), the library call the fit makes after each TTMc.
+10. The Tucker path: ``fit(t, (16, 16, 16), method="tucker_hooi",
+   impl="cuda", niters=8, timers=...)`` with every count set to 0 just
+   before: K1-TTMc launches 3 x 8 = 24 times, nothing else.  Held to the
+   plain ``impl="segment"`` fit from the same orthonormal state, which
+   must launch no kernel at all (so it stays independent of them): the fit
+   within 1e-5, ``values_at`` on 100 000 stored coordinates within a
+   relative 1e-3 (2-norm of the difference over that of the values), and
+   each mode's subspace ``||U U^T - U' U'^T||_F / sqrt(R) <= 1e-3``
+   (computed in float64 from U^T U, U'^T U' and U^T U').  The gap between
+   sigma_R and sigma_{R+1} of each mode's final Y is printed beside it.
+11. The linearized Tucker path: the same fit with
+   ``impl="linearized_cuda"``: K3-TTMc launches 8 times (sort mode 0;
+   modes 1 and 2 decode and ``index_add_``), nothing else; held to
+   ``segment`` as in phase 10.
+12. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -70,6 +91,8 @@ from pathlib import Path
 
 RANK = 35
 NITERS = 20
+TUCKER_RANKS = (16, 16, 16)
+TUCKER_NITERS = 8
 # NVIDIA H100 SXM data sheet (dense, no sparsity) at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -120,7 +143,18 @@ def rel_diffs(torch, got, want) -> tuple[float, list[float]]:
                    for a, b in zip(got.factors, want.factors)]
 
 
+def subspace_gap(torch, u, v) -> float:
+    """||U U^T - V V^T||_F / sqrt(R) from the R x R products alone (the
+    n x n ones would not fit), in float64: the squared norm is
+    ||U^T U||^2 + ||V^T V||^2 - 2 ||U^T V||^2 for any U, V."""
+    u, v = u.double(), v.double()
+    sq = (torch.linalg.norm(u.T @ u) ** 2 + torch.linalg.norm(v.T @ v) ** 2
+          - 2 * torch.linalg.norm(u.T @ v) ** 2)
+    return math.sqrt(max(0.0, float(sq)) / u.shape[1])
+
+
 def main() -> int:
+    start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -138,13 +172,16 @@ def main() -> int:
     from repro_torch.core.gram import gram, kruskal_norm_sq
     from repro_torch.kernels import (_build, linearized_cuda, mttkrp_cuda, ops,
                                      ref, syrk_cuda)
-    from repro_torch.methods import fit
+    from repro_torch.methods import fit, make_state
+    from repro_torch.methods.tucker_hooi import _init_orthonormal
     from repro_torch.core.csf import DEFAULT_BLOCK, DEFAULT_ROW_TILE
     from repro_torch.ingest import content_key
     from repro_torch.plan import AutotuneStore, plan_decomposition, tensor_stats
 
     counters = {"mttkrp": mttkrp_cuda.mttkrp, "syrk": syrk_cuda.syrk,
-                "mttkrp_lin": linearized_cuda.mttkrp}
+                "mttkrp_lin": linearized_cuda.mttkrp,
+                "ttmc": mttkrp_cuda.ttmc, "ttmc_lin": linearized_cuda.ttmc}
+    none = dict.fromkeys(counters, 0)
 
     def zero_counts() -> None:
         for fn in counters.values():
@@ -251,6 +288,7 @@ def main() -> int:
 
     # --- 4. K3: MTTKRP on the linearized workspace ------------------------
     k3 = {"max_abs_err": 0.0}
+    lins = {}  # kept for the TTMc phase
     for sm in (0, 1):
         t0 = time.perf_counter()
         lin = build_linearized(t, sort_mode=sm)
@@ -284,6 +322,7 @@ def main() -> int:
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
         if sm == 0:  # the sort mode the linearized fit runs
             k3.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        lins[sm] = lin
         del lin, got
 
     # --- 5. the main path ---------------------------------------------------
@@ -331,14 +370,14 @@ def main() -> int:
                                  "segment's by more than a relative 3e-2")
 
     dec, csf_times, launches = timed_fit(
-        "cuda", {"mttkrp": t.order * NITERS, "syrk": 0, "mttkrp_lin": 0})
+        "cuda", dict(none, mttkrp=t.order * NITERS))
     dec_seg = fit(t, RANK, method="cp_als", impl="segment", niters=NITERS,
                   state=state)
     check_against_segment(dec, "impl=cuda")
 
     # --- 6. the linearized path ---------------------------------------------
     dec_lin, lin_times, lin_launches = timed_fit(
-        "linearized_cuda", {"mttkrp": 0, "syrk": 0, "mttkrp_lin": NITERS})
+        "linearized_cuda", dict(none, mttkrp_lin=NITERS))
     check_against_segment(dec_lin, "impl=linearized_cuda")
     launches["mttkrp_lin"] = lin_launches["mttkrp_lin"]
     print("[fit] routine s (csf cuda | linearized_cuda): "
@@ -401,13 +440,172 @@ def main() -> int:
                                     [gram(a) for a in dec.factors]))
     print(f"[gram] launches={gram_counts} model norm^2={model_sq:.6e}"
           f" plain={want_sq:.6e}")
-    if gram_counts != {"mttkrp": 0, "syrk": t.order, "mttkrp_lin": 0}:
+    if gram_counts != dict(none, syrk=t.order):
         raise AssertionError(f"Gram path launches {gram_counts}, expected "
                              f"{t.order} SYRK and nothing else")
     if not abs(model_sq - want_sq) <= 1e-4 * abs(want_sq):
         raise AssertionError(f"model norm^2 {model_sq} vs plain {want_sq}")
 
-    # --- 9. results ---------------------------------------------------------
+    # --- 9. TTMc kernels at Kronecker width --------------------------------
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    tf = tuple(torch.rand((d, r), generator=gen, device=dev)
+               for d, r in zip(t.dims, TUCKER_RANKS))
+    fb = tuple(a.bfloat16() for a in tf)
+
+    def ttmc_bound(nnz_bytes: int, pnnz: int, mode: int):
+        """Bound of one TTMc call: the workspace's stored entries (padding
+        included, as the kernel reads them), the other factors and the
+        output, against the operations the function needs for the tensor's
+        non-zeros: the Kronecker row built up one factor at a time
+        (val * F_1 row, then R_1 R_2 products, ... up to W) and one add per
+        column, 16 + 256 + 256 = 528 flops an entry at (16, 16, 16)."""
+        others = [r for m, r in enumerate(TUCKER_RANKS) if m != mode]
+        width = math.prod(others)
+        nbytes = (pnnz * nnz_bytes
+                  + sum(t.dims[m] * TUCKER_RANKS[m] * 4
+                        for m in range(t.order) if m != mode)
+                  + t.dims[mode] * width * 4)
+        per_entry = sum(math.prod(others[:j + 1])
+                        for j in range(len(others))) + width
+        ops_count = t.nnz * per_entry
+        return nbytes, ops_count, *bound(nbytes, ops_count)
+
+    k1t = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+           "ops_ms": 0.0, "max_abs_err": 0.0}
+    y_by_mode = {}
+    for csf in csfs:
+        got = ops.ttmc(csf, tf)
+        err = max_err(torch, got, ref.ttmc_ref(csf, tf), rtol=1e-4,
+                      atol=1e-4, what=f"K1-TTMc mode {csf.mode} float32")
+        err_bf16 = max_err(torch, ops.ttmc(csf, fb),
+                           ref.ttmc_ref(csf, fb).bfloat16(), rtol=5e-2,
+                           atol=5e-2, what=f"K1-TTMc mode {csf.mode} bfloat16")
+        ms = time_ms(torch, lambda: ops.ttmc(csf, tf))
+        plain_ms = time_ms(torch, lambda: ref.ttmc_ref(csf, tf))
+        nbytes, ops_count, b_ms, b_by = ttmc_bound(
+            4 + 4 * (csf.order - 1) + 4, csf.padded_nnz, csf.mode)
+        print(f"[K1-TTMc] mode {csf.mode} W={got.shape[1]} err f32={err:.3e}"
+              f" bf16={err_bf16:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB, "
+              f"{ops_count / 1e9:.2f} GFLOP)")
+        k1t["ms"] += ms
+        k1t["plain_ms"] += plain_ms
+        k1t["bound_ms"] += b_ms
+        k1t["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        k1t["ops_ms"] += ops_count / FP32_FLOP_PER_S * 1e3
+        k1t["max_abs_err"] = max(k1t["max_abs_err"], err)
+        y_by_mode[csf.mode] = got
+    k3t = {"max_abs_err": 0.0}
+    for sm, lin in lins.items():
+        got = ops.ttmc_lin(lin, tf, sm)
+        err = max_err(torch, got, ref.ttmc_lin_ref(lin, tf, sm), rtol=1e-4,
+                      atol=1e-4, what=f"K3-TTMc sort mode {sm} float32")
+        err_k1 = max_err(torch, got, y_by_mode[sm], rtol=1e-4, atol=1e-4,
+                         what=f"K3-TTMc vs K1-TTMc mode {sm}")
+        err_bf16 = max_err(torch, ops.ttmc_lin(lin, fb, sm),
+                           ref.ttmc_lin_ref(lin, fb, sm).bfloat16(),
+                           rtol=5e-2, atol=5e-2,
+                           what=f"K3-TTMc sort mode {sm} bfloat16")
+        ms = time_ms(torch, lambda: ops.ttmc_lin(lin, tf, sm))
+        plain_ms = time_ms(torch, lambda: ref.ttmc_lin_ref(lin, tf, sm))
+        nbytes, ops_count, b_ms, b_by = ttmc_bound(12, lin.padded_nnz, sm)
+        print(f"[K3-TTMc] sort mode {sm} err f32={err:.3e} vs "
+              f"K1-TTMc={err_k1:.3e} bf16={err_bf16:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+              f"{nbytes / 1e6:.1f} MB, {ops_count / 1e9:.2f} GFLOP)")
+        k3t["max_abs_err"] = max(k3t["max_abs_err"], err)
+        if sm == 0:  # the sort mode the linearized Tucker fit runs
+            k3t.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del lins
+    y2 = y_by_mode[2]
+    svd_ms = time_ms(torch, lambda: torch.linalg.svd(y2, full_matrices=False),
+                     warmup=1, reps=3)
+    print(f"[svd] mode 2 Y {tuple(y2.shape)}: torch.linalg.svd ms="
+          f"{svd_ms:.4f} (median of 3 after 1 warm-up)")
+    del y_by_mode, y2, got
+
+    # --- 10. the Tucker path ------------------------------------------------
+    tinit = _init_orthonormal(t.dims, TUCKER_RANKS, args.seed + 4,
+                              torch.float32, dev)
+    tstate = make_state(tinit, {}, zero, zero, 0)
+    sample = torch.randperm(t.nnz, generator=torch.Generator(device=dev)
+                            .manual_seed(args.seed + 5), device=dev)[:100_000]
+    sample_inds = t.inds[sample]
+
+    def tucker_fit(impl: str, want_launches: dict[str, int]):
+        """One 8-sweep timed Tucker fit from ``tstate``, launch counts set
+        to 0 just before and checked just after."""
+        timers: dict[str, float] = {}
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tdec = fit(t, TUCKER_RANKS, method="tucker_hooi", impl=impl,
+                   niters=TUCKER_NITERS, timers=timers, state=tstate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"[tucker] impl={impl} fit={float(tdec.fit):.7f} "
+              f"wall_s={wall:.4f} launches={counts} "
+              + " ".join(f"{k}_s={timers.get(k, 0.0):.4f}"
+                         for k in ("sort", "ttmc", "svd", "fit")))
+        if counts != want_launches:
+            raise AssertionError(f"tucker impl={impl} launches {counts}, "
+                                 f"expected {want_launches}")
+        if (tuple(tdec.core.shape) != TUCKER_RANKS
+                or not torch.isfinite(tdec.core).all()
+                or any(tuple(a.shape) != (d, r) or not torch.isfinite(a).all()
+                       for a, d, r in zip(tdec.factors, t.dims,
+                                          TUCKER_RANKS))):
+            raise AssertionError(f"tucker impl={impl}: a core or factor of "
+                                 "the wrong shape, or non-finite values")
+        return tdec, dict(timers, wall=wall), counts
+
+    tdec_seg, tseg_times, _ = tucker_fit("segment", dict(none))
+    want_vals = tdec_seg.values_at(sample_inds)
+    # the singular-value gap at the rank cut of each mode's final Y: what
+    # decides how well the subspaces are defined
+    sigma_gap = []
+    for m, csf in enumerate(csfs):
+        sv = torch.linalg.svdvals(ops.ttmc(csf, tdec_seg.factors))
+        r = TUCKER_RANKS[m]
+        sigma_gap.append((float(sv[r - 1]), float(sv[r])))
+    print("[tucker] segment sigma_R, sigma_R+1 per mode: "
+          + " ".join(f"({a:.6e}, {b:.6e})" for a, b in sigma_gap))
+
+    def check_tucker(tdec, what: str) -> None:
+        fit_diff = abs(float(tdec.fit) - float(tdec_seg.fit))
+        got_vals = tdec.values_at(sample_inds)
+        vals_rel = float(torch.linalg.norm(got_vals - want_vals)
+                         / torch.linalg.norm(want_vals))
+        gaps = [subspace_gap(torch, a, b)
+                for a, b in zip(tdec.factors, tdec_seg.factors)]
+        print(f"[tucker] {what} vs segment fit={float(tdec_seg.fit):.7f} "
+              f"|diff|={fit_diff:.3e} values rel={vals_rel:.3e} max abs="
+              f"{float((got_vals - want_vals).abs().max()):.3e} subspace="
+              + " ".join(f"{g:.3e}" for g in gaps))
+        if not math.isfinite(float(tdec.fit)) or fit_diff > 1e-5:
+            raise AssertionError(f"{what}: fit {float(tdec.fit)} vs segment "
+                                 f"{float(tdec_seg.fit)}")
+        if vals_rel > 1e-3 or max(gaps) > 1e-3:
+            raise AssertionError(f"{what}: values or a subspace differ from "
+                                 "segment's by more than 1e-3")
+
+    tdec, tcsf_times, tlaunches = tucker_fit(
+        "cuda", dict(none, ttmc=t.order * TUCKER_NITERS))
+    check_tucker(tdec, "impl=cuda")
+    launches["ttmc"] = tlaunches["ttmc"]
+
+    # --- 11. the linearized Tucker path ---------------------------------------
+    tdec_lin, tlin_times, tlin_launches = tucker_fit(
+        "linearized_cuda", dict(none, ttmc_lin=TUCKER_NITERS))
+    check_tucker(tdec_lin, "impl=linearized_cuda")
+    launches["ttmc_lin"] = tlin_launches["ttmc_lin"]
+    print("[tucker] routine s (cuda | linearized_cuda | segment): "
+          + " ".join(f"{k}={tcsf_times[k]:.4f}|{tlin_times[k]:.4f}|"
+                     f"{tseg_times[k]:.4f}"
+                     for k in ("sort", "ttmc", "svd", "fit", "wall")))
+
+    # --- 12. results --------------------------------------------------------
     kernels = [
         {"name": "mttkrp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mttkrp.cu",
@@ -434,11 +632,31 @@ def main() -> int:
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
+        {"name": "ttmc", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mttkrp.cu",
+         "replaces": "src/repro/kernels/mttkrp_pallas.py:49",
+         "caller": "src/repro/kernels/ops.py:77",
+         "launches": launches["ttmc"], "max_abs_err": k1t["max_abs_err"],
+         "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
+         "bound_ms": k1t["bound_ms"],
+         "bound_by": ("bytes" if k1t["bytes_ms"] >= k1t["ops_ms"]
+                      else "operations"),
+         "library_ms": None},
+        {"name": "ttmc_lin", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/linearized.cu",
+         "replaces": "src/repro/kernels/linearized_pallas.py:34",
+         "caller": "src/repro/kernels/ops.py:158",
+         "launches": launches["ttmc_lin"],
+         "max_abs_err": k3t["max_abs_err"], "ms": k3t["ms"],
+         "plain_ms": k3t["plain_ms"], "bound_ms": k3t["bound_ms"],
+         "bound_by": k3t["bound_by"], "library_ms": None},
     ]
     print(f"[note] build {build_s:.3f} s; times: one call for each mode the "
-          "main path runs, summed (mttkrp_lin: sort mode 0); launches: "
-          "mttkrp in fit(impl='cuda'), mttkrp_lin in "
-          "fit(impl='linearized_cuda'), syrk in gram(impl='cuda')")
+          "main path runs, summed (mttkrp_lin and ttmc_lin: sort mode 0); "
+          "launches: mttkrp in fit(impl='cuda'), mttkrp_lin in "
+          "fit(impl='linearized_cuda'), syrk in gram(impl='cuda'), ttmc "
+          "and ttmc_lin in the Tucker fits of the same impls")
+    print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

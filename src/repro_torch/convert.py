@@ -17,6 +17,8 @@ from repro_torch.core.coo import DeviceLike, SparseTensor, resolve_device
 from repro_torch.core.cpals import CPALSState, CPDecomp
 from repro_torch.core.csf import CSF
 from repro_torch.core.linearized import Linearized
+from repro_torch.methods.registry import DecompState, make_state
+from repro_torch.methods.tucker_hooi import TuckerDecomp
 
 
 def sparse_tensor_from_numpy(inds, vals, dims: Sequence[int], nnz: int,
@@ -80,3 +82,22 @@ def decomp_to_numpy(decomp: CPDecomp):
     """``(factors, lmbda, fit)`` as numpy arrays and a python float."""
     return ([a.detach().cpu().numpy() for a in decomp.factors],
             decomp.lmbda.detach().cpu().numpy(), float(decomp.fit))
+
+
+def tucker_state_from_numpy(factors, fit, iteration: int,
+                            device: DeviceLike = None) -> DecompState:
+    """A Tucker HOOI state (``aux`` is empty); ``iteration=0`` hands in
+    initial factors, as the reference's ``tucker_hooi(state=...)`` takes
+    them."""
+    dev = resolve_device(device)
+    fit_t = torch.as_tensor(np.array(fit), device=dev)
+    return make_state(
+        [torch.as_tensor(np.array(a), device=dev) for a in factors], {},
+        fit_t, fit_t, int(iteration))
+
+
+def tucker_decomp_to_numpy(decomp: TuckerDecomp):
+    """``(core, factors, fit)`` as numpy arrays and a python float."""
+    return (decomp.core.detach().cpu().numpy(),
+            [a.detach().cpu().numpy() for a in decomp.factors],
+            float(decomp.fit))

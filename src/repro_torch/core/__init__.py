@@ -1,5 +1,5 @@
-"""repro_torch.core: sparse CP-ALS (SPLATT) in PyTorch, the counterpart of
-``repro.core``."""
+"""repro_torch.core: sparse CP-ALS (SPLATT) and the Tucker TTMc in PyTorch,
+the counterpart of ``repro.core``."""
 from .coo import (PAPER_DATASETS, SparseTensor, dedupe, from_factors,
                   paper_dataset, random_sparse, resolve_device)
 from .csf import (CSF, build_all_modes, build_csf, build_csf_loop_reference)
@@ -9,6 +9,10 @@ from .mttkrp import (REGISTRY, ImplSpec, available_impls, get_impl,
                      mttkrp_gather_scatter, mttkrp_linearized,
                      mttkrp_linearized_cuda, mttkrp_rowloop, mttkrp_segment,
                      register_impl)
+from .ttmc import (TTMC_IMPLS, TTMC_REGISTRY, available_ttmc_impls,
+                   get_ttmc_impl, kron_chain, register_ttmc_impl, ttmc,
+                   ttmc_cuda, ttmc_dense, ttmc_gather_scatter,
+                   ttmc_linearized, ttmc_linearized_cuda, ttmc_segment)
 from .gram import (CHOLESKY_RIDGE, column_norms, gram, hadamard_grams,
                    kruskal_fit, kruskal_inner, kruskal_norm_sq, normalize,
                    solve_cholesky, solve_gram)
@@ -24,6 +28,10 @@ __all__ = [
     "mttkrp_cuda", "mttkrp_dense", "mttkrp_gather_scatter",
     "mttkrp_linearized", "mttkrp_linearized_cuda", "mttkrp_rowloop",
     "mttkrp_segment", "register_impl",
+    "TTMC_IMPLS", "TTMC_REGISTRY", "available_ttmc_impls", "get_ttmc_impl",
+    "kron_chain", "register_ttmc_impl", "ttmc", "ttmc_cuda", "ttmc_dense",
+    "ttmc_gather_scatter", "ttmc_linearized", "ttmc_linearized_cuda",
+    "ttmc_segment",
     "CHOLESKY_RIDGE", "column_norms", "gram", "hadamard_grams",
     "kruskal_fit", "kruskal_inner", "kruskal_norm_sq", "normalize",
     "solve_cholesky", "solve_gram",

@@ -83,6 +83,36 @@ def mttkrp_rowloop(t: SparseTensor, factors: Sequence[Tensor],
 
 
 # ---------------------------------------------------------------------------
+# the two reductions and the CSF check every CSF impl shares (the TTMc
+# registry, core/ttmc.py, uses the segment sum and the check too)
+# ---------------------------------------------------------------------------
+
+
+def _segment_sum(prod: Tensor, rows: Tensor, num_rows: int) -> Tensor:
+    """Sum of ``prod``'s rows by ``rows``, which must be sorted: each output
+    row's contributions are contiguous, so no conflict resolution."""
+    lengths = torch.bincount(rows, minlength=num_rows)
+    return torch.segment_reduce(prod, "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+
+
+def _scatter_sum(prod: Tensor, rows: Tensor, num_rows: int) -> Tensor:
+    """Sum of ``prod``'s rows by ``rows`` in any order (``index_add_``)."""
+    out = torch.zeros((num_rows, prod.shape[1]), dtype=prod.dtype,
+                      device=prod.device)
+    return out.index_add_(0, rows, prod)
+
+
+def _require_csf(csf, impl: str, mode: Optional[int]) -> CSF:
+    if not isinstance(csf, CSF):
+        raise TypeError(f"{impl} impl needs a CSF workspace "
+                        "(build_csf(t, mode))")
+    if mode is not None and csf.mode != mode:
+        raise ValueError(f"CSF is built for mode {csf.mode}, asked {mode}")
+    return csf
+
+
+# ---------------------------------------------------------------------------
 # gather_scatter: vectorized, scatter-add collisions (COO or CSF input)
 # ---------------------------------------------------------------------------
 
@@ -110,16 +140,11 @@ def mttkrp_gather_scatter(t, factors: Sequence[Tensor], mode: int) -> Tensor:
     atomic regime, where colliding output rows serialize.  Takes raw COO or
     the CSF workspace."""
     if isinstance(t, CSF):
-        if t.mode != mode:
-            raise ValueError(f"CSF is built for mode {t.mode}, asked {mode}")
-        prod = _krp_rows_csf(t, factors)
-        rows = t.row_ids
-    else:
-        prod = _krp_rows(t.inds, factors, mode, t.vals)
-        rows = t.inds[:, mode]
-    out = torch.zeros((t.dims[mode], prod.shape[1]), dtype=prod.dtype,
-                      device=prod.device)
-    return out.index_add_(0, rows, prod)
+        _require_csf(t, "gather_scatter", mode)
+        return _scatter_sum(_krp_rows_csf(t, factors), t.row_ids,
+                            t.dims[mode])
+    return _scatter_sum(_krp_rows(t.inds, factors, mode, t.vals),
+                        t.inds[:, mode], t.dims[mode])
 
 
 # ---------------------------------------------------------------------------
@@ -132,25 +157,16 @@ def mttkrp_segment(csf: CSF, factors: Sequence[Tensor],
     """Segment sum over the per-mode sorted workspace: each output row's
     contributions are contiguous (padding keeps ``row_ids`` sorted and adds
     zeros), so the reduction needs no conflict resolution."""
-    if not isinstance(csf, CSF):
-        raise TypeError("segment impl needs a CSF workspace "
-                        "(build_csf(t, mode))")
-    if mode is not None and csf.mode != mode:
-        raise ValueError(f"CSF is built for mode {csf.mode}, asked {mode}")
-    prod = _krp_rows_csf(csf, factors)
-    lengths = torch.bincount(csf.row_ids, minlength=csf.num_rows)
-    return torch.segment_reduce(prod, "sum", lengths=lengths, axis=0,
-                                unsafe=True)
+    csf = _require_csf(csf, "segment", mode)
+    return _segment_sum(_krp_rows_csf(csf, factors), csf.row_ids,
+                        csf.num_rows)
 
 
 def mttkrp_cuda(csf: CSF, factors: Sequence[Tensor],
                 mode: Optional[int] = None) -> Tensor:
     """The hand-written kernel over the unified workspace (its plain
     version on a CPU tensor: ``kernels.ops``)."""
-    if not isinstance(csf, CSF):
-        raise TypeError("cuda impl needs a CSF workspace (build_csf(t, mode))")
-    if mode is not None and csf.mode != mode:
-        raise ValueError(f"CSF is built for mode {csf.mode}, asked {mode}")
+    csf = _require_csf(csf, "cuda", mode)
     from repro_torch.kernels import ops as kops  # kernels import core.csf
 
     return kops.mttkrp(csf, factors)
@@ -184,12 +200,8 @@ def mttkrp_linearized(ws, factors: Sequence[Tensor], mode: int) -> Tensor:
             prod = prod * factors[m][lin.decode(m)]
     rows = lin.decode(mode)
     if mode == lin.sort_mode:
-        lengths = torch.bincount(rows, minlength=lin.dims[mode])
-        return torch.segment_reduce(prod, "sum", lengths=lengths, axis=0,
-                                    unsafe=True)
-    out = torch.zeros((lin.dims[mode], prod.shape[1]), dtype=prod.dtype,
-                      device=prod.device)
-    return out.index_add_(0, rows, prod)
+        return _segment_sum(prod, rows, lin.dims[mode])
+    return _scatter_sum(prod, rows, lin.dims[mode])
 
 
 def mttkrp_linearized_cuda(ws, factors: Sequence[Tensor],

@@ -1,19 +1,26 @@
-// MTTKRP on the sort mode of the linearized (ALTO-style) workspace, written
-// by hand for Hopper (sm_90a), with every coordinate decoded in the kernel.
+// MTTKRP and TTMc on the sort mode of the linearized (ALTO-style)
+// workspace, written by hand for Hopper (sm_90a), with every coordinate
+// decoded in the kernel.
 //
 // Replaces: src/repro/kernels/linearized_pallas.py `_kernel` (launched by
-// `mttkrp_lin_pallas_call`), together with the decodes and factor-row
-// gathers that src/repro/kernels/ops.py `mttkrp_lin` ran in XLA before
-// calling it.
+// `mttkrp_lin_pallas_call`) in both its uses, together with what its
+// callers ran in XLA before calling it: the decodes and factor-row gathers
+// of src/repro/kernels/ops.py `mttkrp_lin`, and those plus the row-wise
+// Kronecker product and the all-ones operand of `ops.ttmc_lin`.
 //
-// Computes, for every stored entry n of the workspace, on the sort mode s:
-//   out[row(n), r] += vals[n] * prod_{m != s} F_m[coord_m(n), r]
-// with float32 accumulation, for any rank R and tensor order 2..8.  row(n)
-// and every coord_m(n) are bit fields of the entry's packed 64-bit index,
-// stored as two 32-bit words (hi, lo); each field is decoded here with a
-// shift and a mask, and may straddle the two words.
+// Computes, for every stored entry n of the workspace, on the sort mode s,
+// with float32 accumulation, for tensor order 2..8:
+//   MTTKRP (lin_launch with kronecker = 0), any rank R:
+//     out[row(n), r] += vals[n] * prod_{m != s} F_m[coord_m(n), r]
+//   TTMc (kronecker = 1), W = prod_{m != s} R_m:
+//     out[row(n), c] += vals[n] * prod_{m != s} F_m[coord_m(n), d_m(c)]
+//   with d_m(c) the digits of c in the mixed radix (R_m), the last fastest.
+// row(n) and every coord_m(n) are bit fields of the entry's packed 64-bit
+// index, stored as two 32-bit words (hi, lo); each field is decoded here
+// with a shift and a mask, and may straddle the two words.
 //
-// What bounds it: memory traffic, as for K1 (mttkrp.cu).  Each stored entry
+// What bounds it: as for K1 (mttkrp.cu), memory traffic for MTTKRP and
+// operations for a TTMc hundreds of columns wide.  Each stored entry
 // brings 12 B from device memory (hi, lo, value) against K1's 16 B (row, two
 // ids, value); the decodes are a few integer operations per entry.  The
 // factor rows are gathered at random but stay in the 50 MB L2 at yelp's
@@ -26,7 +33,8 @@
 // atomics, and adds the touched rows to the zeroed output with global
 // atomics.  The TPU kernel took the gathered factor rows as operands; here
 // the other modes' ids are decoded from the same two words and the rows
-// gathered inside the kernel.
+// gathered inside the kernel.  TTMc forms the Kronecker row inside the
+// kernel and splits a wide output across CTAs, as K1 does (tile.cuh).
 #include <cstdint>
 
 #include "tile.cuh"
@@ -61,16 +69,16 @@ __device__ __forceinline__ int decode_field(uint32_t hi, uint32_t lo,
   return static_cast<int>(word & mask);
 }
 
-template <typename TV, typename TF>
+template <typename TV, typename TF, typename Cols>
 __global__ void __launch_bounds__(kThreads)
-mttkrp_lin_kernel(const uint32_t* __restrict__ hi_words,
-                  const uint32_t* __restrict__ lo_words,
-                  const TV* __restrict__ vals, FactorPtrs factors, int n_other,
-                  Field row_field, OtherFields other,
-                  const int* __restrict__ block_tile, float* __restrict__ out,
-                  int block, int row_tile, int num_rows, int rank) {
+lin_kernel(const uint32_t* __restrict__ hi_words,
+           const uint32_t* __restrict__ lo_words, const TV* __restrict__ vals,
+           FactorPtrs factors, Cols cols, int n_other, Field row_field,
+           OtherFields other, const int* __restrict__ block_tile,
+           float* __restrict__ out, int block, int row_tile, int num_rows,
+           int width, int chunk) {
   extern __shared__ float smem[];
-  const TileSmem s = tile_smem(smem, row_tile, rank, block);
+  const TileSmem s = tile_smem(smem, row_tile, chunk, block);
   const long long first = static_cast<long long>(blockIdx.x) * block;
   const int base = block_tile[blockIdx.x] * row_tile;
 
@@ -92,69 +100,96 @@ mttkrp_lin_kernel(const uint32_t* __restrict__ hi_words,
       hi = max(hi, local);
     }
   }
-  accumulate_and_flush<TF>(s, factors, n_other, lo, hi, block, row_tile,
-                           base, num_rows, rank, out);
+  accumulate_and_flush<TF>(s, factors, cols, n_other, lo, hi, block,
+                           row_tile, base, num_rows, width,
+                           cta_columns(width, chunk), out);
 }
 
-template <typename TV, typename TF>
-int launch(const void* hi_words, const void* lo_words, const void* vals,
-           const FactorPtrs& factors, int n_other, Field row_field,
-           const OtherFields& other, const void* block_tile, void* out,
-           int nblocks, int block, int row_tile, int num_rows, int rank,
-           cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(row_tile, rank, block, n_other);
-  auto kernel = mttkrp_lin_kernel<TV, TF>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  if (nblocks == 0) return cudaSuccess;
-  kernel<<<nblocks, kThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(hi_words),
-      static_cast<const uint32_t*>(lo_words), static_cast<const TV*>(vals),
-      factors, n_other, row_field, other, static_cast<const int*>(block_tile),
-      static_cast<float*>(out), block, row_tile, num_rows, rank);
-  return cudaGetLastError();
+struct LinArgs {
+  const uint32_t* hi_words;
+  const uint32_t* lo_words;
+  const void* vals;
+  FactorPtrs factors;
+  int n_other;
+  Field row_field;
+  OtherFields other;
+  const int* block_tile;
+  float* out;
+  int nblocks, block, row_tile, num_rows, width;
+  cudaStream_t stream;
+};
+
+template <typename TV, typename TF, typename Cols>
+int launch(const LinArgs& a, const Cols& cols) {
+  return launch_tiled(lin_kernel<TV, TF, Cols>, a.nblocks, a.width,
+                      a.row_tile, a.block, a.n_other, a.stream, a.hi_words,
+                      a.lo_words, static_cast<const TV*>(a.vals), a.factors,
+                      cols, a.n_other, a.row_field, a.other, a.block_tile,
+                      a.out, a.block, a.row_tile, a.num_rows, a.width);
+}
+
+template <typename Cols>
+int launch_typed(const LinArgs& a, const Cols& cols, int vals_bf16,
+                 int factors_bf16) {
+  using bf16 = __nv_bfloat16;
+  if (vals_bf16)
+    return factors_bf16 ? launch<bf16, bf16>(a, cols)
+                        : launch<bf16, float>(a, cols);
+  return factors_bf16 ? launch<float, bf16>(a, cols)
+                      : launch<float, float>(a, cols);
 }
 
 }  // namespace
 
 // hi/lo: the packed index's 32-bit words.  factors: order - 1 device
 // pointers, one per mode other than sort_mode in ascending mode order, each
-// a contiguous (dim, rank) matrix.  offsets/widths: every mode's bit field
-// (host arrays of `order` ints).  vals_bf16 / factors_bf16 select bfloat16
-// over float32.  Returns a cudaError_t.
-extern "C" int mttkrp_lin_launch(const void* hi_words, const void* lo_words,
-                                 const void* vals, int vals_bf16,
-                                 const void* const* factors, int factors_bf16,
-                                 const int* offsets, const int* widths,
-                                 int order, int sort_mode,
-                                 const void* block_tile, void* out,
-                                 int nblocks, int block, int row_tile,
-                                 int num_rows, int rank, void* stream) {
-  if (order < 2 || order > kMaxOrder || sort_mode < 0 || sort_mode >= order ||
-      rank < 1 || block < 1 || row_tile < 1)
+// a contiguous (dim, ranks[i]) matrix; ranks: a host array of order - 1
+// ints, all equal for MTTKRP (kronecker = 0).  offsets/widths: every mode's
+// bit field (host arrays of `order` ints).  out: a zeroed (num_rows, width)
+// float32 matrix, width = the rank (MTTKRP) or prod ranks (TTMc,
+// kronecker = 1).  vals_bf16 / factors_bf16 select bfloat16 over float32.
+// Returns a cudaError_t.
+extern "C" int lin_launch(const void* hi_words, const void* lo_words,
+                          const void* vals, int vals_bf16,
+                          const void* const* factors, const int* ranks,
+                          int factors_bf16, const int* offsets,
+                          const int* widths, int order, int sort_mode,
+                          const void* block_tile, void* out, int nblocks,
+                          int block, int row_tile, int num_rows,
+                          int kronecker, void* stream) {
+  if (order < 2 || order > kMaxOrder || sort_mode < 0 || sort_mode >= order)
     return cudaErrorInvalidValue;
   for (int m = 0; m < order; ++m)
     if (offsets[m] < 0 || widths[m] < 1 || widths[m] > 32 ||
         offsets[m] + widths[m] > 64)
       return cudaErrorInvalidValue;
   const int n_other = order - 1;
-  FactorPtrs fp = {};
-  OtherFields other = {};
+  const long long width = output_width(ranks, n_other, kronecker != 0);
+  if (width < 1) return cudaErrorInvalidValue;
+  LinArgs a = {};
+  a.hi_words = static_cast<const uint32_t*>(hi_words);
+  a.lo_words = static_cast<const uint32_t*>(lo_words);
+  a.vals = vals;
+  a.n_other = n_other;
   for (int m = 0, i = 0; m < order; ++m) {
     if (m == sort_mode) continue;
-    fp.p[i] = factors[i];
-    other.f[i] = Field{offsets[m], widths[m]};
+    a.factors.p[i] = factors[i];
+    a.other.f[i] = Field{offsets[m], widths[m]};
     ++i;
   }
-  const Field row_field{offsets[sort_mode], widths[sort_mode]};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (vals_bf16) {
-    return factors_bf16
-               ? launch<__nv_bfloat16, __nv_bfloat16>(hi_words, lo_words, vals, fp, n_other, row_field, other, block_tile, out, nblocks, block, row_tile, num_rows, rank, s)
-               : launch<__nv_bfloat16, float>(hi_words, lo_words, vals, fp, n_other, row_field, other, block_tile, out, nblocks, block, row_tile, num_rows, rank, s);
+  a.row_field = Field{offsets[sort_mode], widths[sort_mode]};
+  a.block_tile = static_cast<const int*>(block_tile);
+  a.out = static_cast<float*>(out);
+  a.nblocks = nblocks;
+  a.block = block;
+  a.row_tile = row_tile;
+  a.num_rows = num_rows;
+  a.width = static_cast<int>(width);
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (kronecker) {
+    Kronecker cols = {};
+    for (int i = 0; i < n_other; ++i) cols.ranks[i] = ranks[i];
+    return launch_typed(a, cols, vals_bf16, factors_bf16);
   }
-  return factors_bf16
-             ? launch<float, __nv_bfloat16>(hi_words, lo_words, vals, fp, n_other, row_field, other, block_tile, out, nblocks, block, row_tile, num_rows, rank, s)
-             : launch<float, float>(hi_words, lo_words, vals, fp, n_other, row_field, other, block_tile, out, nblocks, block, row_tile, num_rows, rank, s);
+  return launch_typed(a, KhatriRao{ranks[0]}, vals_bf16, factors_bf16);
 }

@@ -1,12 +1,19 @@
-// MTTKRP over one mode's CSF workspace, written by hand for Hopper (sm_90a).
+// MTTKRP and TTMc over one mode's CSF workspace, written by hand for
+// Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/mttkrp_pallas.py `_kernel` (launched by
-// `mttkrp_pallas_call`), together with the factor-row gathers that
-// src/repro/kernels/ops.py `mttkrp` ran in XLA before calling it.
+// `mttkrp_pallas_call`) in both its uses, together with what its callers
+// ran in XLA before calling it: the factor-row gathers of
+// src/repro/kernels/ops.py `mttkrp`, and the gathers, the row-wise
+// Kronecker product and the all-ones operand of `ops.ttmc`.
 //
-// Computes, for every stored entry n of the workspace:
-//   out[row[n], r] += vals[n] * prod_i F_i[other_ids[n, i], r]
-// with float32 accumulation, for any rank R and tensor order 2..8.
+// Computes, for every stored entry n of the workspace, with float32
+// accumulation, for tensor order 2..8:
+//   MTTKRP (csf_launch with kronecker = 0), any rank R:
+//     out[row[n], r] += vals[n] * prod_i F_i[other_ids[n, i], r]
+//   TTMc (kronecker = 1), factor i of rank R_i, W = prod_i R_i:
+//     out[row[n], c] += vals[n] * prod_i F_i[other_ids[n, i], d_i(c)]
+//   with d_i(c) the digits of c in the mixed radix (R_i), the last fastest.
 //
 // What bounds it: memory traffic.  Each stored non-zero brings 16 B from
 // device memory (row, two other ids, value) and does about 3 flops per rank
@@ -34,19 +41,32 @@
 //  * No lane padding of the rank.  Threads form groups of R consecutive
 //    lanes, one group per non-zero at a time, so a group's gathers of one
 //    factor row are contiguous.
+//  * TTMc forms the Kronecker row inside the kernel, as it gathers the
+//    factor rows: the reference's (pnnz x W) Kronecker buffer and all-ones
+//    operand were 2 x 8.2 GB a call at yelp's size and W = 256.  Each
+//    thread keeps one output column, so it splits that column into its
+//    factor columns once (tile.cuh's Kronecker policy).  The work per entry
+//    is W columns of (order - 1) gathers and products and one add: 768
+//    flops a stored entry at W = 256, against 16 B read.  The function
+//    itself needs fewer (528: val * F_1's row once, then one product and
+//    one add a column), which is still enough to bound it by operations
+//    once W is in the hundreds.
+//  * The shared tile is row_tile x W floats; past the CTA's 227 KB (W over
+//    about 440 at row tile 128) the width is split across CTAs
+//    (blockIdx.y), each staging the block again.
 #include "tile.cuh"
 
 namespace {
 
-template <typename TV, typename TF>
+template <typename TV, typename TF, typename Cols>
 __global__ void __launch_bounds__(kThreads)
-mttkrp_csf_kernel(const int* __restrict__ rows,
-                  const int* __restrict__ other_ids,
-                  const TV* __restrict__ vals, FactorPtrs factors, int n_other,
-                  const int* __restrict__ block_tile, float* __restrict__ out,
-                  int block, int row_tile, int num_rows, int rank) {
+csf_kernel(const int* __restrict__ rows, const int* __restrict__ other_ids,
+           const TV* __restrict__ vals, FactorPtrs factors, Cols cols,
+           int n_other, const int* __restrict__ block_tile,
+           float* __restrict__ out, int block, int row_tile, int num_rows,
+           int width, int chunk) {
   extern __shared__ float smem[];
-  const TileSmem s = tile_smem(smem, row_tile, rank, block);
+  const TileSmem s = tile_smem(smem, row_tile, chunk, block);
   const long long first = static_cast<long long>(blockIdx.x) * block;
   const int base = block_tile[blockIdx.x] * row_tile;
 
@@ -66,53 +86,78 @@ mttkrp_csf_kernel(const int* __restrict__ rows,
       hi = max(hi, local);
     }
   }
-  accumulate_and_flush<TF>(s, factors, n_other, lo, hi, block, row_tile,
-                           base, num_rows, rank, out);
+  accumulate_and_flush<TF>(s, factors, cols, n_other, lo, hi, block,
+                           row_tile, base, num_rows, width,
+                           cta_columns(width, chunk), out);
 }
 
-template <typename TV, typename TF>
-int launch(const void* rows, const void* other_ids, const void* vals,
-           const FactorPtrs& factors, int n_other, const void* block_tile,
-           void* out, int nblocks, int block, int row_tile, int num_rows,
-           int rank, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(row_tile, rank, block, n_other);
-  auto kernel = mttkrp_csf_kernel<TV, TF>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  if (nblocks == 0) return cudaSuccess;
-  kernel<<<nblocks, kThreads, smem, stream>>>(
-      static_cast<const int*>(rows), static_cast<const int*>(other_ids),
-      static_cast<const TV*>(vals), factors, n_other,
-      static_cast<const int*>(block_tile), static_cast<float*>(out), block,
-      row_tile, num_rows, rank);
-  return cudaGetLastError();
+struct CsfArgs {
+  const int* rows;
+  const int* other_ids;
+  const void* vals;
+  FactorPtrs factors;
+  int n_other;
+  const int* block_tile;
+  float* out;
+  int nblocks, block, row_tile, num_rows, width;
+  cudaStream_t stream;
+};
+
+template <typename TV, typename TF, typename Cols>
+int launch(const CsfArgs& a, const Cols& cols) {
+  return launch_tiled(csf_kernel<TV, TF, Cols>, a.nblocks, a.width,
+                      a.row_tile, a.block, a.n_other, a.stream, a.rows,
+                      a.other_ids, static_cast<const TV*>(a.vals), a.factors,
+                      cols, a.n_other, a.block_tile, a.out, a.block,
+                      a.row_tile, a.num_rows, a.width);
+}
+
+template <typename Cols>
+int launch_typed(const CsfArgs& a, const Cols& cols, int vals_bf16,
+                 int factors_bf16) {
+  using bf16 = __nv_bfloat16;
+  if (vals_bf16)
+    return factors_bf16 ? launch<bf16, bf16>(a, cols)
+                        : launch<bf16, float>(a, cols);
+  return factors_bf16 ? launch<float, bf16>(a, cols)
+                      : launch<float, float>(a, cols);
 }
 
 }  // namespace
 
 // factors: n_other device pointers, one per other mode in ascending mode
-// order, each a contiguous (dim, rank) matrix.  vals_bf16 / factors_bf16
-// select bfloat16 over float32.  Returns a cudaError_t.
-extern "C" int mttkrp_csf_launch(const void* rows, const void* other_ids,
-                                 const void* vals, int vals_bf16,
-                                 const void* const* factors, int n_other,
-                                 int factors_bf16, const void* block_tile,
-                                 void* out, int nblocks, int block,
-                                 int row_tile, int num_rows, int rank,
-                                 void* stream) {
-  if (n_other < 1 || n_other > kMaxOther || rank < 1 || block < 1 ||
-      row_tile < 1)
-    return cudaErrorInvalidValue;
-  FactorPtrs fp = {};
-  for (int i = 0; i < n_other; ++i) fp.p[i] = factors[i];
-  auto s = static_cast<cudaStream_t>(stream);
-  if (vals_bf16) {
-    return factors_bf16
-               ? launch<__nv_bfloat16, __nv_bfloat16>(rows, other_ids, vals, fp, n_other, block_tile, out, nblocks, block, row_tile, num_rows, rank, s)
-               : launch<__nv_bfloat16, float>(rows, other_ids, vals, fp, n_other, block_tile, out, nblocks, block, row_tile, num_rows, rank, s);
+// order, each a contiguous (dim, ranks[i]) matrix; ranks: a host array of
+// n_other ints, all equal for MTTKRP (kronecker = 0).  out: a zeroed
+// (num_rows, width) float32 matrix, width = the rank (MTTKRP) or prod ranks
+// (TTMc, kronecker = 1).  vals_bf16 / factors_bf16 select bfloat16 over
+// float32.  Returns a cudaError_t.
+extern "C" int csf_launch(const void* rows, const void* other_ids,
+                          const void* vals, int vals_bf16,
+                          const void* const* factors, const int* ranks,
+                          int n_other, int factors_bf16,
+                          const void* block_tile, void* out, int nblocks,
+                          int block, int row_tile, int num_rows,
+                          int kronecker, void* stream) {
+  const long long width = output_width(ranks, n_other, kronecker != 0);
+  if (width < 1) return cudaErrorInvalidValue;
+  CsfArgs a = {};
+  a.rows = static_cast<const int*>(rows);
+  a.other_ids = static_cast<const int*>(other_ids);
+  a.vals = vals;
+  for (int i = 0; i < n_other; ++i) a.factors.p[i] = factors[i];
+  a.n_other = n_other;
+  a.block_tile = static_cast<const int*>(block_tile);
+  a.out = static_cast<float*>(out);
+  a.nblocks = nblocks;
+  a.block = block;
+  a.row_tile = row_tile;
+  a.num_rows = num_rows;
+  a.width = static_cast<int>(width);
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (kronecker) {
+    Kronecker cols = {};
+    for (int i = 0; i < n_other; ++i) cols.ranks[i] = ranks[i];
+    return launch_typed(a, cols, vals_bf16, factors_bf16);
   }
-  return factors_bf16
-             ? launch<float, __nv_bfloat16>(rows, other_ids, vals, fp, n_other, block_tile, out, nblocks, block, row_tile, num_rows, rank, s)
-             : launch<float, float>(rows, other_ids, vals, fp, n_other, block_tile, out, nblocks, block, row_tile, num_rows, rank, s);
+  return launch_typed(a, KhatriRao{ranks[0]}, vals_bf16, factors_bf16);
 }

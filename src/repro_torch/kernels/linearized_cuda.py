@@ -1,17 +1,20 @@
-"""Wrapper of the hand-written linearized MTTKRP kernel
-(``csrc/linearized.cu``).
+"""Wrappers of the hand-written linearized kernel (``csrc/linearized.cu``):
+MTTKRP and TTMc on the workspace's sort mode.
 
 Replaces ``src/repro/kernels/linearized_pallas.py`` (the TPU kernel with
-the in-kernel row decode) and the decodes and factor-row gathers its caller
+the in-kernel row decode) in both its uses, and the decodes and factor-row
+gathers (and for TTMc the Kronecker rows and all-ones operand) its callers
 ran in XLA.  The kernel runs on the workspace's sort mode only; the design
-notes are at the top of the CUDA source.  The plain version is
-:func:`repro_torch.kernels.ref.mttkrp_lin_ref`; this wrapper takes CUDA
-tensors only and launches or raises.
+notes are at the top of the CUDA source.  The plain versions are
+:func:`repro_torch.kernels.ref.mttkrp_lin_ref` and :func:`~repro_torch.
+kernels.ref.ttmc_lin_ref`; these wrappers take CUDA tensors only and launch
+or raise.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Sequence
 
 import torch
@@ -28,16 +31,17 @@ _MAX_ORDER = 8
 def _library() -> ctypes.CDLL:
     lib = _build.load("linearized")
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.mttkrp_lin_launch.argtypes = [
-        p, p, p, i, ctypes.POINTER(ctypes.c_void_p), i, ip, ip, i, i, p, p,
-        i, i, i, i, i, p]
-    lib.mttkrp_lin_launch.restype = ctypes.c_int
+    lib.lin_launch.argtypes = [p, p, p, i, ctypes.POINTER(ctypes.c_void_p),
+                               ip, i, ip, ip, i, i, p, p, i, i, i, i, i, p]
+    lib.lin_launch.restype = ctypes.c_int
     return lib
 
 
 def _check_inputs(lin: Linearized, factors: Sequence[torch.Tensor],
-                  mode: int) -> tuple[int, ...]:
-    """Raise on what the kernel does not take; returns the other modes."""
+                  mode: int, *, kronecker: bool
+                  ) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Raise on what the kernel does not take; returns the other modes and
+    their ranks (one shared rank unless ``kronecker``)."""
     if mode != lin.sort_mode:
         raise ValueError(
             f"the linearized kernel runs on the workspace's sort mode "
@@ -45,7 +49,8 @@ def _check_inputs(lin: Linearized, factors: Sequence[torch.Tensor],
     dev = lin.vals.device
     if dev.type != "cuda":
         raise ValueError("linearized_cuda takes CUDA tensors; the plain "
-                         "version is kernels.ref.mttkrp_lin_ref")
+                         "versions are kernels.ref.mttkrp_lin_ref and "
+                         "ttmc_lin_ref")
     if not 2 <= lin.order <= _MAX_ORDER:
         raise ValueError(f"order {lin.order} is outside 2..{_MAX_ORDER}")
     if len(factors) != lin.order:
@@ -55,18 +60,20 @@ def _check_inputs(lin: Linearized, factors: Sequence[torch.Tensor],
         raise TypeError(f"vals dtype {lin.vals.dtype} is not float32/bfloat16")
     other = tuple(m for m in range(lin.order) if m != mode)
     first = factors[other[0]]
-    rank = int(first.shape[1])
+    ranks = []
     for m in other:
         f = factors[m]
         if f.device != dev:
             raise ValueError(f"factor {m} is on {f.device}, workspace on {dev}")
         if f.dtype != first.dtype or f.dtype not in _DTYPES:
             raise TypeError("factors must share one dtype, float32 or bfloat16")
+        rank = int((f if kronecker else first).shape[-1])
         if f.dim() != 2 or tuple(f.shape) != (lin.dims[m], rank):
             raise ValueError(f"factor {m} has shape {tuple(f.shape)}, expected "
                              f"{(lin.dims[m], rank)}")
         if not f.is_contiguous():
             raise ValueError(f"factor {m} is not contiguous")
+        ranks.append(rank)
     for name in ("hi", "lo", "vals", "block_tile"):
         x = getattr(lin, name)
         if x.device != dev or not x.is_contiguous():
@@ -76,33 +83,55 @@ def _check_inputs(lin: Linearized, factors: Sequence[torch.Tensor],
             raise TypeError(f"workspace {name} must be int32")
     if lin.padded_nnz % lin.block:
         raise ValueError("padded nnz is not a multiple of the block")
-    return other
+    return other, tuple(ranks)
+
+
+def _launch(lin: Linearized, factors: Sequence[torch.Tensor], mode: int, *,
+            kronecker: bool) -> torch.Tensor:
+    """Check the inputs and run the kernel on the sort mode; the
+    (dims[sort_mode], width) result in the factors' dtype, accumulated in
+    float32."""
+    other, ranks = _check_inputs(lin, factors, mode, kronecker=kronecker)
+    width = math.prod(ranks) if kronecker else ranks[0]
+    lib = _library()
+    fdtype = factors[other[0]].dtype
+    out = torch.zeros((lin.num_rows, width), dtype=torch.float32,
+                      device=lin.vals.device)
+    ptrs = (ctypes.c_void_p * len(other))(
+        *[factors[m].data_ptr() for m in other])
+    c_ranks = (ctypes.c_int * len(other))(*ranks)
+    offsets = (ctypes.c_int * lin.order)(*lin.offsets)
+    widths = (ctypes.c_int * lin.order)(*lin.widths)
+    stream = torch.cuda.current_stream(lin.vals.device).cuda_stream
+    code = lib.lin_launch(
+        lin.hi.data_ptr(), lin.lo.data_ptr(), lin.vals.data_ptr(),
+        int(lin.vals.dtype == torch.bfloat16), ptrs, c_ranks,
+        int(fdtype == torch.bfloat16), offsets, widths, lin.order,
+        lin.sort_mode, lin.block_tile.data_ptr(), out.data_ptr(),
+        lin.num_blocks, lin.block, lin.row_tile, lin.num_rows, int(kronecker),
+        stream)
+    _build.check(lib, code, "lin_launch kernel launch")
+    return out if fdtype == torch.float32 else out.to(fdtype)
 
 
 def mttkrp(lin: Linearized, factors: Sequence[torch.Tensor],
            mode: int) -> torch.Tensor:
     """MTTKRP for the workspace's sort mode ``mode``: (dims[mode], R), in
     the factors' dtype, accumulated in float32."""
-    other = _check_inputs(lin, factors, mode)
-    lib = _library()
-    fdtype = factors[other[0]].dtype
-    rank = int(factors[other[0]].shape[1])
-    out = torch.zeros((lin.num_rows, rank), dtype=torch.float32,
-                      device=lin.vals.device)
-    ptrs = (ctypes.c_void_p * len(other))(
-        *[factors[m].data_ptr() for m in other])
-    offsets = (ctypes.c_int * lin.order)(*lin.offsets)
-    widths = (ctypes.c_int * lin.order)(*lin.widths)
-    stream = torch.cuda.current_stream(lin.vals.device).cuda_stream
-    code = lib.mttkrp_lin_launch(
-        lin.hi.data_ptr(), lin.lo.data_ptr(), lin.vals.data_ptr(),
-        int(lin.vals.dtype == torch.bfloat16), ptrs,
-        int(fdtype == torch.bfloat16), offsets, widths, lin.order,
-        lin.sort_mode, lin.block_tile.data_ptr(), out.data_ptr(),
-        lin.num_blocks, lin.block, lin.row_tile, lin.num_rows, rank, stream)
-    _build.check(lib, code, "linearized mttkrp kernel launch")
+    out = _launch(lin, factors, mode, kronecker=False)
     mttkrp.launches += 1
-    return out if fdtype == torch.float32 else out.to(fdtype)
+    return out
+
+
+def ttmc(lin: Linearized, factors: Sequence[torch.Tensor],
+         mode: int) -> torch.Tensor:
+    """TTMc for the workspace's sort mode ``mode``: (dims[mode], prod of
+    the other modes' ranks) in ``kron_chain``'s column order, in the
+    factors' dtype, accumulated in float32."""
+    out = _launch(lin, factors, mode, kronecker=True)
+    ttmc.launches += 1
+    return out
 
 
 mttkrp.launches = 0
+ttmc.launches = 0

@@ -14,6 +14,7 @@ import torch
 from repro_torch.core.csf import CSF
 from repro_torch.core.linearized import Linearized
 from repro_torch.core.mttkrp import mttkrp_linearized
+from repro_torch.core.ttmc import ttmc_linearized
 
 from . import linearized_cuda, mttkrp_cuda, ref, syrk_cuda
 
@@ -42,6 +43,29 @@ def mttkrp_lin(lin: Linearized, factors: Sequence[torch.Tensor],
         return linearized_cuda.mttkrp(lin, factors, mode)
     dtype = factors[next(m for m in range(lin.order) if m != mode)].dtype
     return ref.mttkrp_lin_ref(lin, factors, mode).to(dtype)
+
+
+def ttmc(csf: CSF, factors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """TTMc for the mode ``csf`` was built for: (num_rows, prod of the
+    other modes' ranks) in the factors' dtype."""
+    if csf.vals.is_cuda:
+        return mttkrp_cuda.ttmc(csf, factors)
+    return ref.ttmc_ref(csf, factors).to(factors[csf.other_modes[0]].dtype)
+
+
+def ttmc_lin(lin: Linearized, factors: Sequence[torch.Tensor],
+             mode: int) -> torch.Tensor:
+    """TTMc for any mode from the linearized workspace: (dims[mode], prod
+    of the other modes' ranks) in the factors' dtype.  The sort mode runs
+    the kernel (its plain version on a CPU tensor); the other modes take
+    ``core.ttmc.ttmc_linearized`` on every device, as :func:`mttkrp_lin`
+    does."""
+    if mode != lin.sort_mode:
+        return ttmc_linearized(lin, factors, mode)
+    if lin.vals.is_cuda:
+        return linearized_cuda.ttmc(lin, factors, mode)
+    dtype = factors[next(m for m in range(lin.order) if m != mode)].dtype
+    return ref.ttmc_lin_ref(lin, factors, mode).to(dtype)
 
 
 def syrk(a: torch.Tensor) -> torch.Tensor:

@@ -2,11 +2,11 @@
 the process.
 
 Counterpart of ``repro.plan.autotune``.  ``plan_decomposition(calibrate=
-True)`` replaces the registry's declared cost models with per-impl MTTKRP
-timings on the actual tensor.  The outcome is a pure function of the
-tensor's bytes, the candidate set, the backend, the scored rank and the
-workspace geometry, so this module keeps it on disk and a warm plan makes
-**zero** timing runs:
+True)`` replaces the registry's declared cost models with per-impl kernel
+(MTTKRP or TTMc) timings on the actual tensor.  The outcome is a pure
+function of the tensor's bytes, the candidate set, the backend, the scored
+rank and the workspace geometry, so this module keeps it on disk and a
+warm plan makes **zero** timing runs:
 
 * :func:`calibration_key`: sha256 over (tensor content key, mode, candidate
   names, backend, rank, kernel family, block/row_tile, a stats digest) plus

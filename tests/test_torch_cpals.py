@@ -164,10 +164,12 @@ def test_decomp_reconstruction_matches_reference():
 
 
 def test_method_registry_and_driver_errors():
-    assert available_methods() == ("cp_als",)
+    assert available_methods() == ("cp_als", "tucker_hooi")
+    assert available_methods(family="tucker") == ("tucker_hooi",)
     assert get_method("cp_als").state_aux == ("lmbda",)
+    assert get_method("tucker_hooi").kernel == "ttmc"
     with pytest.raises(ValueError, match="unknown method"):
-        get_method("tucker_hooi")
+        get_method("cp_nn_hals")
     with pytest.raises(TypeError, match="materialized"):
         fit("data.tns", RANK)
     state = make_state([torch.ones(2, 2)], {"lmbda": torch.ones(2)},

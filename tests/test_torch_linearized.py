@@ -18,6 +18,7 @@ from repro.ingest.cache import content_key as jax_content_key
 from repro.kernels import ops as jops
 from repro.methods import fit as jax_fit
 from repro.plan import plan_decomposition as jax_plan
+from repro.plan import planner as jax_planner
 from repro_torch import convert
 from repro_torch.core import (Linearized, SparseTensor, available_impls,
                               build_workspace, mttkrp)
@@ -345,8 +346,9 @@ def test_calibration_key_separates_every_axis():
         assert calibration_key("t", **{**base, **change}) != key
     assert calibration_key("u", **base) != key
     assert len(registry_fingerprint("mttkrp")) == 16
-    with pytest.raises(NotImplementedError, match="Tucker"):
-        registry_fingerprint("ttmc")
+    # the TTMc registry is a key axis of its own
+    assert registry_fingerprint("ttmc") != registry_fingerprint("mttkrp")
+    assert calibration_key("t", kernel="ttmc", **base) != key
 
 
 def test_store_roundtrip_counters_and_version(tmp_path):
@@ -362,11 +364,27 @@ def test_store_roundtrip_counters_and_version(tmp_path):
     assert store.load("ab" * 32) is None and not path.exists()
 
 
-def test_calibrating_ttmc_is_refused():
-    _, pt = _tensors(DIMS3)
-    with pytest.raises(NotImplementedError, match="Tucker"):
+def test_calibrating_ttmc_is_refused(measure_counter):
+    """Refused without the Tucker ranks (the reference's text); with
+    ``factor_ranks`` every TTMc candidate of every mode is timed."""
+    jt, pt = _tensors(DIMS3)
+    with pytest.raises(ValueError) as want:
+        jax_planner._calibrate_mode(jt, 0, ("segment",), rank=4, block=64,
+                                    row_tile=16, kernel="ttmc")
+    with pytest.raises(ValueError) as got:
         planner_mod._calibrate_mode(pt, 0, ("segment",), rank=4, block=64,
                                     row_tile=16, kernel="ttmc")
+    assert str(got.value) == str(want.value)
+    assert measure_counter["n"] == 0
+    plan = plan_decomposition(pt, "auto", rank=(6, 4, 3), kernel="ttmc",
+                              factor_ranks=(1, 2, 3), calibrate=True)
+    names = ("gather_scatter", "linearized", "segment")
+    assert measure_counter["n"] == 3 * len(names)
+    for p in plan.modes:
+        assert p.kernel == "ttmc" and p.source == "measured-fresh"
+        assert tuple(p.costs) == names
+        assert all(c > 0 for c in p.costs.values())
+        assert p.impl == min(p.costs, key=p.costs.get)
 
 
 @pytest.mark.parametrize("kwargs", [{}, {"reorder": "degree_sort",
