@@ -19,8 +19,12 @@ Phases; any failure raises and exits non-zero:
    calls after warm-up, beside the least time the card could take.
 3. K2, SYRK: at the three factor shapes, against its plain version (rtol
    1e-4, atol 1e-3), and beside ``torch.matmul(a.T, a)`` as the library's
-   yardstick (timed here only; the port never calls it).  Then the
-   steady-state time of one mode's epilogue (the work after its MTTKRP).
+   yardstick (timed here only; the port never calls it), each timed two
+   ways: the median of single calls (the kernel table's ``ms``) and the
+   time per launch over 100 back-to-back calls between one pair of CUDA
+   events; and the device time of their kernels, from torch.profiler.
+   Then the steady-state time of one mode's epilogue (the work after its
+   MTTKRP).
 4. K3, MTTKRP on the linearized workspace: ``build_linearized`` of the
    full yelp tensor with sort mode 0 (its row field straddles the two
    32-bit words) and sort mode 1 (its row field lies in the high word),
@@ -55,7 +59,8 @@ Phases; any failure raises and exits non-zero:
    yelp tensor and K3-TTMc on sort modes 0 and 1, at Tucker ranks
    (16, 16, 16) (W = 256), each against its plain version (float32 at
    1e-4, bfloat16 at 5e-2), K3-TTMc also against K1-TTMc on the same
-   mode's CSF, timed beside their bounds; then one thin SVD of mode 2's
+   mode's CSF, timed beside their bounds, K1-TTMc also beside the factor
+   rows it gathers from L2 and their rate; then one thin SVD of mode 2's
    Y (75 000 x 256), the library call the fit makes after each TTMc.
 10. The Tucker path: ``fit(t, (16, 16, 16), method="tucker_hooi",
    impl="cuda", niters=8, timers=...)`` with every count set to 0 just
@@ -121,6 +126,42 @@ def time_ms(torch, fn, *, warmup: int = 3, reps: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_per_launch_ms(torch, fn, *, warmup: int = 3,
+                       launches: int = 100) -> float:
+    """Time of one call of ``fn`` over ``launches`` back-to-back calls
+    between one pair of CUDA events, after ``warmup`` calls: the host's
+    per-call work overlaps the card's, as in a loop of calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def device_us(torch, fn, *, calls: int = 20) -> float | None:
+    """Device time of one call of ``fn`` in microseconds: its kernels'
+    device time summed over ``calls`` calls traced by torch.profiler, over
+    ``calls``; None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total / calls if total > 0 else None
 
 
 def max_err(torch, got, want, *, rtol: float, atol: float, what: str) -> float:
@@ -200,7 +241,9 @@ def main() -> int:
     print(f"[build] kernels built in {build_s:.3f} s")
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "entry function" in line:
+                print(f"[build] {name}: {line.split(chr(39))[1]}")
+            elif "Used" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -259,13 +302,23 @@ def main() -> int:
         ms = time_ms(torch, lambda: ops.syrk(a))
         plain_ms = time_ms(torch, lambda: ref.syrk_ref(a))
         library_ms = time_ms(torch, lambda: torch.matmul(a.T, a))
+        run_ms = time_per_launch_ms(torch, lambda: ops.syrk(a))
+        run_library_ms = time_per_launch_ms(torch,
+                                            lambda: torch.matmul(a.T, a))
+        dev_us, dev_library_us = (
+            device_us(torch, f) for f in (lambda: ops.syrk(a),
+                                          lambda: torch.matmul(a.T, a)))
         rows = a.shape[0]
         nbytes = rows * RANK * 4 + RANK * RANK * 4
         ops_count = 2 * rows * RANK * RANK
         b_ms, b_by = bound(nbytes, ops_count)
         print(f"[K2] {rows}x{RANK} err={err:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by})")
+              f"bound_ms={b_ms:.5f} ({b_by}); per launch of 100 "
+              f"back-to-back: ms={run_ms:.4f} library_ms="
+              f"{run_library_ms:.4f}; device us a call (torch.profiler): "
+              f"{dev_us if dev_us else 'not measured'} library "
+              f"{dev_library_us if dev_library_us else 'not measured'}")
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", library_ms), ("bound_ms", b_ms),
                          ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
@@ -484,10 +537,17 @@ def main() -> int:
         plain_ms = time_ms(torch, lambda: ref.ttmc_ref(csf, tf))
         nbytes, ops_count, b_ms, b_by = ttmc_bound(
             4 + 4 * (csf.order - 1) + 4, csf.padded_nnz, csf.mode)
+        # what the design aims at: each stored entry's factor rows, gathered
+        # from L2 (the kernel reads padding too)
+        others = [TUCKER_RANKS[m] for m in csf.other_modes]
+        gathered = csf.padded_nnz * sum(others) * 4
+        geo = mttkrp_cuda.ttmc_geometry(csf.padded_nnz, others)
         print(f"[K1-TTMc] mode {csf.mode} W={got.shape[1]} err f32={err:.3e}"
               f" bf16={err_bf16:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB, "
-              f"{ops_count / 1e9:.2f} GFLOP)")
+              f"{ops_count / 1e9:.2f} GFLOP); L2 gathers "
+              f"{gathered / 1e9:.3f} GB at {gathered / ms / 1e6:.1f} GB/s; "
+              f"{geo}")
         k1t["ms"] += ms
         k1t["plain_ms"] += plain_ms
         k1t["bound_ms"] += b_ms

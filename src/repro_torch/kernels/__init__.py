@@ -2,11 +2,13 @@
 and the Tucker TTMc on the CSF and on the linearized workspace, SYRK).
 
     csrc/*.cu        CUDA C++ for sm_90a, built with nvcc at first use
-                     (csrc/tile.cuh: the output tile K1 and K3 share)
+                     (csrc/tile.cuh: the shared-memory output tile of K1's
+                     MTTKRP and of K3)
     _build.py        the nvcc build into build/kernels/ and the ctypes load
     mttkrp_cuda.py   wrappers of csrc/mttkrp.cu, MTTKRP and TTMc (replace
-                     mttkrp_pallas.py)
-    syrk_cuda.py     wrapper of csrc/syrk.cu (replaces syrk_pallas.py)
+                     mttkrp_pallas.py), and the TTMc launch geometry
+    syrk_cuda.py     wrapper of csrc/syrk.cu (replaces syrk_pallas.py), and
+                     its launch geometry
     linearized_cuda.py  wrappers of csrc/linearized.cu, MTTKRP and TTMc
                      (replace linearized_pallas.py)
     ref.py           the plain PyTorch versions

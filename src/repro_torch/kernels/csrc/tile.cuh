@@ -1,5 +1,8 @@
-// The shared-memory output tile that K1 (mttkrp.cu) and K3 (linearized.cu)
-// sum one block of stored entries into, and its flush to the output.
+// The shared-memory output tile that K1's MTTKRP (mttkrp.cu) and K3's
+// MTTKRP and TTMc (linearized.cu) sum one block of stored entries into, and
+// its flush to the output.  K1's TTMc has its own row-segmented kernel in
+// mttkrp.cu and takes only the Kronecker policy's digit split from here, so
+// the tile's Kronecker path now serves K3-TTMc alone.
 //
 // A CTA first stages its block of entries in shared memory: each entry's
 // row inside the CTA's row tile (or -1 for an entry to leave out), its value

@@ -4,15 +4,19 @@ and TTMc.
 Replaces ``src/repro/kernels/mttkrp_pallas.py`` (the TPU one-hot
 segment-matmul kernel) in both its uses, and the factor-row gathers (and
 for TTMc the Kronecker rows and all-ones operand) its callers ran in XLA.
-The design notes (one CTA per block of non-zeros, a shared-memory tile,
-atomics into a zeroed output, gathers inside the kernel, the width split
-across CTAs) are at the top of the CUDA source.  The plain versions are
+The design notes are at the top of the CUDA source: for MTTKRP one CTA
+per block of non-zeros, a shared-memory tile and atomics into a zeroed
+output (``csrc/tile.cuh``); for TTMc one warp per range of stored entries,
+each lane's output columns summed in registers and flushed when the row
+changes, with the launch picked here by :func:`ttmc_geometry`.  Both gather
+the factor rows inside the kernel.  The plain versions are
 :func:`repro_torch.kernels.ref.mttkrp_ref` and :func:`~repro_torch.kernels.
 ref.ttmc_ref`; these wrappers take CUDA tensors only and launch or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Sequence
@@ -24,6 +28,50 @@ from repro_torch.core.csf import CSF
 from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+LANES = 32               # kLanes in csrc/mttkrp.cu
+WARPS = 8                # kWarps: kThreads / kLanes
+MAX_COLS_PER_LANE = 16   # the widest Item the kernel is built for
+TTMC_SEGMENT = 512       # stored entries a warp takes
+
+
+@dataclasses.dataclass(frozen=True)
+class TTMcGeometry:
+    """One K1-TTMc launch: each lane sums ``cols_per_lane`` consecutive
+    output columns, each warp ``segment`` consecutive stored entries, over
+    ``ctas`` x ``slices`` CTAs (``slices`` along the width)."""
+
+    cols_per_lane: int
+    segment: int
+    ctas: int
+    slices: int
+
+    @property
+    def warps(self) -> int:
+        return self.ctas * WARPS
+
+
+def ttmc_geometry(padded_nnz: int, ranks: Sequence[int]) -> TTMcGeometry:
+    """The launch for a TTMc over ``padded_nnz`` stored entries and the
+    other modes' ``ranks`` (ascending mode order; width = their product).
+
+    Columns a lane: the fewest powers of two that cover the width in one
+    32-lane slice, at most MAX_COLS_PER_LANE, then halved until they divide
+    the last rank, so that a lane's run of columns lies inside one digit of
+    every other factor.  Past 32 x that, the width takes more slices, each
+    reading the stream again."""
+    width = math.prod(ranks)
+    if padded_nnz < 0 or width < 1:
+        raise ValueError(f"no TTMc launch for {padded_nnz} entries, ranks "
+                         f"{tuple(ranks)}")
+    cpl = 1
+    while cpl < MAX_COLS_PER_LANE and LANES * cpl < width:
+        cpl *= 2
+    while ranks[-1] % cpl:
+        cpl //= 2
+    warps = -(-padded_nnz // TTMC_SEGMENT)
+    return TTMcGeometry(cols_per_lane=cpl, segment=TTMC_SEGMENT,
+                        ctas=max(1, -(-warps // WARPS)),
+                        slices=-(-width // (LANES * cpl)))
 
 
 @functools.cache
@@ -31,7 +79,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("mttkrp")
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.csf_launch.argtypes = [p, p, p, i, ctypes.POINTER(ctypes.c_void_p),
-                               ip, i, i, p, p, i, i, i, i, i, p]
+                               ip, i, i, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.csf_launch.restype = ctypes.c_int
     return lib
 
@@ -63,6 +111,9 @@ def _check_inputs(csf: CSF, factors: Sequence[torch.Tensor], *,
                              f"{(csf.dims[m], rank)}")
         if not f.is_contiguous():
             raise ValueError(f"factor {m} is not contiguous")
+        if kronecker and f.data_ptr() % 16:
+            raise ValueError(f"factor {m} does not start on 16 bytes (the "
+                             "TTMc kernel reads its rows in 16-byte loads)")
         ranks.append(rank)
     for name in ("row_ids", "other_ids", "vals", "block_tile"):
         x = getattr(csf, name)
@@ -90,13 +141,16 @@ def _launch(csf: CSF, factors: Sequence[torch.Tensor], *,
     ptrs = (ctypes.c_void_p * len(other))(
         *[factors[m].data_ptr() for m in other])
     c_ranks = (ctypes.c_int * len(other))(*ranks)
+    geo = (ttmc_geometry(csf.padded_nnz, ranks) if kronecker
+           else TTMcGeometry(0, 0, 0, 0))
     stream = torch.cuda.current_stream(csf.vals.device).cuda_stream
     code = lib.csf_launch(
         csf.row_ids.data_ptr(), csf.other_ids.data_ptr(), csf.vals.data_ptr(),
         int(csf.vals.dtype == torch.bfloat16), ptrs, c_ranks, len(other),
         int(fdtype == torch.bfloat16), csf.block_tile.data_ptr(),
         out.data_ptr(), csf.num_blocks, csf.block, csf.row_tile,
-        csf.num_rows, int(kronecker), stream)
+        csf.num_rows, int(kronecker), geo.cols_per_lane, geo.segment,
+        geo.ctas, geo.slices, stream)
     _build.check(lib, code, "csf_launch kernel launch")
     return out if fdtype == torch.float32 else out.to(fdtype)
 

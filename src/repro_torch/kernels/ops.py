@@ -70,6 +70,5 @@ def ttmc_lin(lin: Linearized, factors: Sequence[torch.Tensor],
 
 def syrk(a: torch.Tensor) -> torch.Tensor:
     """G = A^T A: (R, R) in ``a``'s dtype, accumulated in float32."""
-    if a.is_cuda:
-        return syrk_cuda.syrk(a).to(a.dtype)
-    return ref.syrk_ref(a).to(a.dtype)
+    g = syrk_cuda.syrk(a) if a.is_cuda else ref.syrk_ref(a)
+    return g if a.dtype == torch.float32 else g.to(a.dtype)

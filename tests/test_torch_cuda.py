@@ -9,6 +9,7 @@ imports no JAX, so the card tests run on a machine without it:
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -143,9 +144,15 @@ def test_mttkrp_kernel_matches_plain_on_card(cuda, dims, nnz, mode, rank,
 @pytest.mark.parametrize("rows,rank,dtype",
                          [(r, k, torch.float32) for r, k in
                           ((100, 8), (512, 35), (1000, 64), (4096, 128),
-                           (333, 150), (1000, 200))]
+                           (333, 150), (1000, 200),
+                           # fewer rows than CTAs or than one tile; rank 1
+                           (5, 35), (7, 1), (0, 3), (41_000, 1),
+                           # the CP factor shapes; tiles that end ragged
+                           (41_000, 35), (11_000, 35), (75_001, 150))]
                          + [(75_000, 35, torch.float32),
-                            (300, 40, torch.bfloat16)])
+                            (300, 40, torch.bfloat16),
+                            (41_000, 35, torch.bfloat16),
+                            (1001, 150, torch.bfloat16)])
 def test_syrk_kernel_matches_plain_on_card(cuda, rows, rank, dtype):
     g = torch.Generator(device=cuda).manual_seed(rows)
     a = (torch.randn((rows, rank), generator=g, device=cuda) * 0.1).to(dtype)
@@ -156,6 +163,37 @@ def test_syrk_kernel_matches_plain_on_card(cuda, rows, rank, dtype):
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), ref.syrk_ref(a), rtol=tol,
                                atol=max(tol, 1e-3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,rank", [(41_000, 35), (75_000, 35),
+                                       (333, 150)])
+def test_syrk_kernel_is_bitwise_repeatable_on_card(cuda, rows, rank):
+    """The partials are summed in a fixed order, so two runs agree bit for
+    bit, and the tickets are back at 0 after each."""
+    g = torch.Generator(device=cuda).manual_seed(rank)
+    a = torch.randn((rows, rank), generator=g, device=cuda)
+    first = syrk_cuda.syrk(a)
+    second = syrk_cuda.syrk(a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, first.T)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    index = a.device.index
+    assert not syrk_cuda._scratch(index, stream).tickets.any()
+
+
+@pytest.mark.cuda
+def test_syrk_kernel_reads_a_matrix_off_16_bytes_on_card(cuda):
+    """A row slice of a wider buffer starts off 16 bytes: the tiles are
+    staged with scalar loads then."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randn((5001, 35), generator=g, device=cuda)
+    a = base[1:]
+    assert a.is_contiguous() and a.data_ptr() % 16
+    got = syrk_cuda.syrk(a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.syrk_ref(a), rtol=1e-4, atol=1e-3)
 
 
 # (dims, nnz, sort_mode, rank, block, row_tile, skew, dtype)
@@ -320,3 +358,233 @@ def test_ttmc_kernels_with_empty_tiles_on_card(cuda):
     torch.testing.assert_close(got_lin, ref.ttmc_lin_ref(lin, f, 0),
                                rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(got_lin, got, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the launch geometry of the redesigned K2 and K1-TTMc, checkable without a
+# card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [0, 5, 100, 333, 4096, 11_000, 41_000,
+                                  75_000, 75_001])
+@pytest.mark.parametrize("rank", [1, 35, 150, 200])
+def test_syrk_geometry_fits_and_covers(rows, rank):
+    sms = 132
+    geo = syrk_cuda.syrk_geometry(rows, rank, sms)
+    nb = -(-rank // syrk_cuda.BLOCK)
+    rp = nb * syrk_cuda.BLOCK
+    assert geo.pairs == nb * (nb + 1) // 2
+    # the tile fits the 48 KB the kernel may use without an opt-in
+    assert 1 <= geo.tile_rows and geo.tile_rows * rp * 4 <= syrk_cuda.SMEM_BYTES
+    assert geo.tile_rows % 8 == 0  # every tile starts on 16 bytes
+    # at most one CTA a SM along the rows, none without a tile
+    assert 1 <= geo.nparts <= max(1, min(sms, -(-rows // geo.tile_rows)))
+    # every block pair in some slice, no slice empty
+    t = syrk_cuda.THREADS
+    assert geo.slices * t >= geo.pairs > (geo.slices - 1) * t
+    # two levels of about sqrt(CTAs) partials each
+    assert geo.group * geo.group >= geo.nparts > (geo.group - 1) ** 2
+    assert geo.groups == -(-geo.nparts // geo.group)
+    assert geo.groups * geo.group >= geo.nparts > (geo.groups - 1) * geo.group
+    assert geo.partial_floats == (geo.nparts + geo.groups) * geo.pairs * 16
+    assert geo.tickets == geo.groups + 1
+
+
+@pytest.mark.parametrize("rows,tile_rows,nparts", [(41_000, 312, 132),
+                                                   (11_000, 88, 125),
+                                                   (75_000, 288, 132)])
+def test_syrk_geometry_at_the_cp_factor_shapes(rows, tile_rows, nparts):
+    """yelp's factors at R = 35: one CTA a SM, one or two tiles each, and
+    45 block pairs (630 entries of G's triangle in 720 sums) in one slice;
+    the partials summed in 11-12 groups of 12."""
+    geo = syrk_cuda.syrk_geometry(rows, 35, 132)
+    assert (geo.tile_rows, geo.nparts, geo.slices, geo.pairs, geo.group) == (
+        tile_rows, nparts, 1, 45, 12)
+
+
+def test_syrk_geometry_refuses_a_rank_past_the_tile():
+    with pytest.raises(ValueError, match="too wide"):
+        syrk_cuda.syrk_geometry(100, 12_289, 132)
+
+
+# (other ranks, columns a lane, slices along the width)
+TTMC_GEOMETRY_CASES = [
+    ((16, 16), 8, 1),       # the Tucker cell: W = 256, 8 columns a lane
+    ((3, 5), 1, 1),         # W = 15: lanes 15..31 idle
+    ((5, 7, 3), 1, 4),      # W = 105: an odd last rank, one column a lane
+    ((24, 24), 8, 3),       # W = 576 past 32 x 16 columns
+    ((8, 8, 8), 8, 2),      # W = 512 at a last rank of 8
+    ((16, 32), 16, 1),      # W = 512 at the cap
+    ((10, 10, 12), 4, 10),  # W = 1200: 4 divides 12, 8 does not
+    ((2, 3, 4), 1, 1),
+    ((35,), 1, 2),
+    ((64,), 2, 1),
+]
+
+
+@pytest.mark.parametrize("ranks,cpl,slices", TTMC_GEOMETRY_CASES)
+def test_ttmc_geometry_columns_and_slices(ranks, cpl, slices):
+    geo = mttkrp_cuda.ttmc_geometry(7_998_976, ranks)
+    width = math.prod(ranks)
+    assert (geo.cols_per_lane, geo.slices) == (cpl, slices)
+    assert cpl <= mttkrp_cuda.MAX_COLS_PER_LANE and cpl & (cpl - 1) == 0
+    assert ranks[-1] % cpl == 0  # a lane's run stays inside one digit
+    lanes = mttkrp_cuda.LANES
+    assert slices * lanes * cpl >= width > (slices - 1) * lanes * cpl
+
+
+@pytest.mark.parametrize("pnnz", [0, 1, 31, 511, 512, 513, 4095, 4096,
+                                  4097, 40_960, 8_017_920, 8_078_848,
+                                  8_153_088, 2**31 - 512])
+def test_ttmc_geometry_covers_every_entry(pnnz):
+    """Every stored entry in some warp's range, and no CTA without one
+    (yelp's padded entry counts among them)."""
+    geo = mttkrp_cuda.ttmc_geometry(pnnz, (16, 16))
+    seg = geo.segment
+    assert seg == mttkrp_cuda.TTMC_SEGMENT and seg % mttkrp_cuda.LANES == 0
+    assert geo.ctas >= 1 and geo.warps * seg >= pnnz
+    assert (geo.warps - mttkrp_cuda.WARPS) * seg < max(pnnz, 1)
+
+
+def _kron_rows(csf, factors):
+    """Each stored entry's Kronecker row, val * F_1[id_1] x F_2[id_2] x ...,
+    the last factor fastest: (pnnz, W) float64."""
+    prod = csf.vals.double()[:, None]
+    for i, m in enumerate(csf.other_modes):
+        f = factors[m].double()[csf.other_ids[:, i].long()]
+        prod = (prod[:, :, None] * f[:, None, :]).reshape(prod.shape[0], -1)
+    return prod.numpy()
+
+
+def _row_segmented_model(csf, factors, segment):
+    """The K1-TTMc kernel's schedule in numpy: each warp range sums its
+    runs of equal rows, stores a row that starts and ends inside it, and
+    adds its first and last rows.  Asserts that a stored row is touched by
+    no other range; returns the output."""
+    rows = csf.row_ids.numpy()
+    contrib = _kron_rows(csf, factors)
+    out = np.zeros((csf.num_rows, contrib.shape[1]))
+    touched = np.zeros(csf.num_rows, dtype=np.int64)
+    stored = []
+    for s in range(0, rows.shape[0], segment):
+        r = rows[s:s + segment]
+        starts = np.flatnonzero(np.r_[True, r[1:] != r[:-1]])
+        sums = np.add.reduceat(contrib[s:s + segment], starts)
+        touched[r[starts]] += 1
+        for i, (row, v) in enumerate(zip(r[starts], sums)):
+            if row == r[0] or i == starts.shape[0] - 1:
+                out[row] += v
+            else:
+                out[row] = v
+                stored.append(row)
+    assert (touched[stored] == 1).all()
+    return out
+
+
+def _hot_row_tensor(device, *, hot=3000, dims=(300, 70, 70),
+                    empty_tiles=False, seed=17):
+    """Row 1 of mode 0 holds ``hot`` entries: more than two warp ranges and
+    blocks of 512.  The other rows hold a thin spread; with ``empty_tiles``
+    rows 128..255 hold nothing, so row tile 1 (at 128 rows) is one block of
+    padding."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cells = torch.randperm(dims[1] * dims[2], generator=g)[:hot]
+    hot_inds = torch.stack([torch.ones(hot, dtype=torch.int64),
+                            cells // dims[2], cells % dims[2]], 1)
+    n = 2000
+    rows = torch.randint(0, dims[0], (n,), generator=g)
+    if empty_tiles:
+        rows = torch.where((rows >= 128) & (rows < 256), rows % 128, rows)
+    thin = torch.stack([rows, torch.randint(0, dims[1], (n,), generator=g),
+                        torch.randint(0, dims[2], (n,), generator=g)], 1)
+    inds = torch.cat([hot_inds, thin])
+    vals = torch.rand(inds.shape[0], generator=g) + 0.1
+    return dedupe(SparseTensor(inds, vals, dims, inds.shape[0],
+                               device=device))
+
+
+@pytest.mark.parametrize("segment", [32, 64, 512])
+@pytest.mark.parametrize("empty_tiles", [False, True])
+def test_row_segmented_schedule_owns_every_stored_row(segment, empty_tiles):
+    """What the kernel relies on, on the CPU: over the padded CSF stream
+    (padding included) a row that starts and ends inside a warp range lies
+    in no other range, so its plain store races with nothing, and the
+    stores and adds together give the plain TTMc."""
+    t = _hot_row_tensor("cpu", empty_tiles=empty_tiles)
+    csf = build_csf(t, 0, block=64, row_tile=128)
+    if empty_tiles:
+        tiles = csf.block_tile.numpy()
+        assert (np.bincount(tiles) >= 1).all() and csf.num_row_tiles == 3
+    f = _ttmc_factors(t.dims, (2, 3, 4), 18, "cpu")
+    got = _row_segmented_model(csf, f, segment)
+    np.testing.assert_allclose(got, ref.ttmc_ref(csf, f).double().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_row_segmented_schedule_on_skewed_tensors(mode):
+    t = random_sparse((30, 20, 10), 4000, 19, skew=2.0, device="cpu")
+    csf = build_csf(t, mode, block=128, row_tile=64)
+    f = _ttmc_factors(t.dims, (3, 4, 5), 20, "cpu")
+    got = _row_segmented_model(csf, f, 32)
+    np.testing.assert_allclose(got, ref.ttmc_ref(csf, f).double().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+# (ranks, mode, block, row_tile, empty tiles, dtype) on the hot-row tensor
+CARD_TTMC_SEGMENT_CASES = [
+    ((16, 16, 16), 0, 512, 128, False, torch.float32),
+    ((16, 16, 16), 0, 64, 32, False, torch.float32),
+    ((16, 16, 16), 0, 512, 128, True, torch.float32),
+    ((16, 16, 16), 1, 512, 128, False, torch.float32),
+    ((16, 16, 16), 2, 512, 128, True, torch.float32),
+    ((4, 3, 5), 0, 512, 128, True, torch.float32),     # W = 15
+    ((4, 24, 24), 0, 512, 128, False, torch.float32),  # W = 576, 3 slices
+    ((4, 16, 32), 0, 512, 128, False, torch.float32),  # 16 columns a lane
+    ((4, 16, 32), 0, 512, 128, True, torch.bfloat16),
+    ((16, 16, 16), 0, 512, 128, True, torch.bfloat16),
+    ((4, 4, 12), 0, 512, 128, False, torch.bfloat16),  # 2 columns a lane
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,mode,block,row_tile,empty_tiles,dtype",
+                         CARD_TTMC_SEGMENT_CASES)
+def test_ttmc_kernel_row_segments_on_card(cuda, ranks, mode, block, row_tile,
+                                          empty_tiles, dtype):
+    """A hot row over more than two warp ranges and blocks, all-padding
+    blocks, widths off 32 and past one slice, bfloat16."""
+    t = _hot_row_tensor(cuda, empty_tiles=empty_tiles)
+    f = _ttmc_factors(t.dims, ranks, 21, cuda, dtype)
+    csf = build_csf(t, mode, block=block, row_tile=row_tile)
+    before = mttkrp_cuda.ttmc.launches
+    got = ops.ttmc(csf, f)
+    torch.cuda.synchronize()
+    assert mttkrp_cuda.ttmc.launches == before + 1
+    _check_ttmc(got, ref.ttmc_ref(csf, f), t.dims, mode, ranks, dtype, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,mode", [((2, 5, 7, 3), 0),      # W = 105
+                                        ((4, 10, 10, 12), 0),   # W = 1200
+                                        ((8, 8, 8, 8), 1),      # W = 512
+                                        ((5, 7, 3, 2), 3)])
+def test_ttmc_kernel_order_four_widths_on_card(cuda, ranks, mode):
+    t = random_sparse((20, 15, 12, 10), 2000, 22, skew=1.0, device=cuda)
+    f = _ttmc_factors(t.dims, ranks, 23, cuda)
+    csf = build_csf(t, mode, block=128, row_tile=64)
+    got = ops.ttmc(csf, f)
+    torch.cuda.synchronize()
+    _check_ttmc(got, ref.ttmc_ref(csf, f), t.dims, mode, ranks,
+                torch.float32, 1.0)
+
+
+@pytest.mark.cuda
+def test_ttmc_kernel_refuses_a_factor_off_16_bytes_on_card(cuda):
+    t = random_sparse((30, 20, 10), 300, 24, device=cuda)
+    f = list(_ttmc_factors(t.dims, (4, 4, 4), 25, cuda))
+    f[2] = torch.rand(10 * 4 + 1, device=cuda)[1:].view(10, 4)
+    before = mttkrp_cuda.ttmc.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        mttkrp_cuda.ttmc(build_csf(t, 0), f)
+    assert mttkrp_cuda.ttmc.launches == before
