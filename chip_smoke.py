@@ -10,13 +10,15 @@ CUDA toolkit:
 Phases; any failure raises and exits non-zero:
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-   per source, in parallel) and read the card's name and power limit,
+   per source, in parallel), print each kernel's registers, stack and
+   spills as ptxas reports them, and read the card's name and power limit,
    printed at the end, beside the numbers.
 2. K1, MTTKRP: on each mode of the full-size yelp tensor (paper Table I
    shape, drawn on the card from the seed) at rank 35, the kernel against
    its plain version, in float32 (rtol/atol 1e-4: atomics change the order
    of summation) and in bfloat16 (5e-2).  Times, median of CUDA-event-timed
-   calls after warm-up, beside the least time the card could take.
+   calls after warm-up, beside the least time the card could take, and the
+   factor-row bytes the kernel gathers from L2 and their rate.
 3. K2, SYRK: at the three factor shapes, against its plain version (rtol
    1e-4, atol 1e-3), and beside ``torch.matmul(a.T, a)`` as the library's
    yardstick (timed here only; the port never calls it), each timed two
@@ -59,9 +61,9 @@ Phases; any failure raises and exits non-zero:
    yelp tensor and K3-TTMc on sort modes 0 and 1, at Tucker ranks
    (16, 16, 16) (W = 256), each against its plain version (float32 at
    1e-4, bfloat16 at 5e-2), K3-TTMc also against K1-TTMc on the same
-   mode's CSF, timed beside their bounds, K1-TTMc also beside the factor
-   rows it gathers from L2 and their rate; then one thin SVD of mode 2's
-   Y (75 000 x 256), the library call the fit makes after each TTMc.
+   mode's CSF, timed beside their bounds and beside the factor rows each
+   gathers from L2 and their rate; then one thin SVD of mode 2's Y
+   (75 000 x 256), the library call the fit makes after each TTMc.
 10. The Tucker path: ``fit(t, (16, 16, 16), method="tucker_hooi",
    impl="cuda", niters=8, timers=...)`` with every count set to 0 just
    before: K1-TTMc launches 3 x 8 = 24 times, nothing else.  Held to the
@@ -164,6 +166,55 @@ def device_us(torch, fn, *, calls: int = 20) -> float | None:
     return total / calls if total > 0 else None
 
 
+def gathered_bytes(ids, row_bytes) -> int:
+    """Bytes of factor rows a row-segmented kernel gathers from L2 in one
+    call, counted in 32-B sectors: each stored entry (padding included)
+    reads the whole row of each other factor, the warp's lanes together, and
+    the row of id ``i`` in a factor of ``b``-byte rows starts at byte
+    ``i * b``, so it touches the sectors ``i * b // 32`` through
+    ``(i * b + b - 1) // 32``.  ``ids``: per other factor, the (pnnz,) row
+    ids the kernel reads; ``row_bytes``: that factor's row stride in
+    bytes."""
+    sectors = 0
+    for i, b in zip(ids, row_bytes):
+        first = i.long() * b
+        sectors += int(((first + b - 1) // 32 - first // 32 + 1).sum())
+    return 32 * sectors
+
+
+def build_lines(log: str) -> list[tuple[str, int, int, int]]:
+    """(mangled kernel name, registers, stack bytes, spill bytes) for each
+    entry function of ptxas's ``-v`` report."""
+    rows, name, stack, spill = [], "", 0, 0
+    for line in log.splitlines():
+        if "entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            stack, spill = nums[0], nums[1] + nums[2]
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            rows.append((name, regs, stack, spill))
+            name, stack, spill = "", 0, 0
+    return rows
+
+
+def demangle(names: list[str]) -> list[str]:
+    """The kernels' names through one c++filt, each cut to its template;
+    the mangled names where c++filt is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return names
+    if len(out) != len(names):
+        return names
+    return [o.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ") for o in out]
+
+
 def max_err(torch, got, want, *, rtol: float, atol: float, what: str) -> float:
     got, want = got.float(), want.float()
     if got.shape != want.shape:
@@ -239,12 +290,20 @@ def main() -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     print(f"[build] kernels built in {build_s:.3f} s")
-    for name, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "entry function" in line:
-                print(f"[build] {name}: {line.split(chr(39))[1]}")
-            elif "Used" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    rows = [(lib, *row) for lib, log in _build.BUILD_LOG.items()
+            for row in build_lines(log)]
+    spilled = []
+    for (lib, _, regs, stack, spill), kernel in zip(
+            rows, demangle([row[1] for row in rows])):
+        print(f"[build] {lib}: {regs} registers, {stack} B stack, "
+              f"{spill} B spill: {kernel}")
+        if spill:
+            spilled.append(kernel)
+    if _build.BUILD_LOG:
+        print(f"[build] kernels that spill: {spilled if spilled else 'none'}")
+    else:
+        print("[build] every library was built before this run: no ptxas "
+              "report")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -282,9 +341,13 @@ def main() -> int:
                   + csf.num_rows * RANK * 4)
         ops_count = csf.padded_nnz * RANK * (n_other + 1)
         b_ms, b_by = bound(nbytes, ops_count)
+        gathered = gathered_bytes(csf.other_ids.unbind(1),
+                                  [RANK * 4] * n_other)
         print(f"[K1] mode {csf.mode} err f32={err:.3e} bf16={err_bf16:.3e}"
               f" ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-              f"({b_by}, {nbytes / 1e6:.1f} MB)")
+              f"({b_by}, {nbytes / 1e6:.1f} MB); L2 gathers "
+              f"{gathered / 1e9:.3f} GB at {gathered / ms / 1e6:.1f} GB/s; "
+              f"{mttkrp_cuda.mttkrp_geometry(csf.padded_nnz, RANK)}")
         k1["ms"] += ms
         k1["plain_ms"] += plain_ms
         k1["bound_ms"] += b_ms
@@ -537,10 +600,9 @@ def main() -> int:
         plain_ms = time_ms(torch, lambda: ref.ttmc_ref(csf, tf))
         nbytes, ops_count, b_ms, b_by = ttmc_bound(
             4 + 4 * (csf.order - 1) + 4, csf.padded_nnz, csf.mode)
-        # what the design aims at: each stored entry's factor rows, gathered
-        # from L2 (the kernel reads padding too)
         others = [TUCKER_RANKS[m] for m in csf.other_modes]
-        gathered = csf.padded_nnz * sum(others) * 4
+        gathered = gathered_bytes(csf.other_ids.unbind(1),
+                                  [r * 4 for r in others])
         geo = mttkrp_cuda.ttmc_geometry(csf.padded_nnz, others)
         print(f"[K1-TTMc] mode {csf.mode} W={got.shape[1]} err f32={err:.3e}"
               f" bf16={err_bf16:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -569,10 +631,15 @@ def main() -> int:
         ms = time_ms(torch, lambda: ops.ttmc_lin(lin, tf, sm))
         plain_ms = time_ms(torch, lambda: ref.ttmc_lin_ref(lin, tf, sm))
         nbytes, ops_count, b_ms, b_by = ttmc_bound(12, lin.padded_nnz, sm)
+        others = [m for m in range(t.order) if m != sm]
+        gathered = gathered_bytes([lin.decode(m) for m in others],
+                                  [TUCKER_RANKS[m] * 4 for m in others])
         print(f"[K3-TTMc] sort mode {sm} err f32={err:.3e} vs "
               f"K1-TTMc={err_k1:.3e} bf16={err_bf16:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
-              f"{nbytes / 1e6:.1f} MB, {ops_count / 1e9:.2f} GFLOP)")
+              f"{nbytes / 1e6:.1f} MB, {ops_count / 1e9:.2f} GFLOP); L2 "
+              f"gathers {gathered / 1e9:.3f} GB at "
+              f"{gathered / ms / 1e6:.1f} GB/s")
         k3t["max_abs_err"] = max(k3t["max_abs_err"], err)
         if sm == 0:  # the sort mode the linearized Tucker fit runs
             k3t.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -668,7 +735,7 @@ def main() -> int:
     # --- 12. results --------------------------------------------------------
     kernels = [
         {"name": "mttkrp", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/mttkrp.cu",
+         "source": "src/repro_torch/kernels/csrc/segmented.cuh",
          "replaces": "src/repro/kernels/mttkrp_pallas.py:49",
          "launches": launches["mttkrp"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -693,7 +760,7 @@ def main() -> int:
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
         {"name": "ttmc", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/mttkrp.cu",
+         "source": "src/repro_torch/kernels/csrc/segmented.cuh",
          "replaces": "src/repro/kernels/mttkrp_pallas.py:49",
          "caller": "src/repro/kernels/ops.py:77",
          "launches": launches["ttmc"], "max_abs_err": k1t["max_abs_err"],
@@ -703,7 +770,7 @@ def main() -> int:
                       else "operations"),
          "library_ms": None},
         {"name": "ttmc_lin", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/linearized.cu",
+         "source": "src/repro_torch/kernels/csrc/segmented.cuh",
          "replaces": "src/repro/kernels/linearized_pallas.py:34",
          "caller": "src/repro/kernels/ops.py:158",
          "launches": launches["ttmc_lin"],

@@ -2,11 +2,13 @@
 and the Tucker TTMc on the CSF and on the linearized workspace, SYRK).
 
     csrc/*.cu        CUDA C++ for sm_90a, built with nvcc at first use
-                     (csrc/tile.cuh: the shared-memory output tile of K1's
-                     MTTKRP and of K3)
+                     (csrc/segmented.cuh: the row-segmented kernel body of
+                     K1 and K3-TTMc; csrc/tile.cuh: the shared-memory output
+                     tile of K3-MTTKRP)
     _build.py        the nvcc build into build/kernels/ and the ctypes load
     mttkrp_cuda.py   wrappers of csrc/mttkrp.cu, MTTKRP and TTMc (replace
-                     mttkrp_pallas.py), and the TTMc launch geometry
+                     mttkrp_pallas.py), and the row-segmented launch
+                     geometries (mttkrp_geometry, ttmc_geometry)
     syrk_cuda.py     wrapper of csrc/syrk.cu (replaces syrk_pallas.py), and
                      its launch geometry
     linearized_cuda.py  wrappers of csrc/linearized.cu, MTTKRP and TTMc

@@ -1,12 +1,13 @@
-// MTTKRP and TTMc on the sort mode of the linearized (ALTO-style)
+// K3: MTTKRP and TTMc on the sort mode of the linearized (ALTO-style)
 // workspace, written by hand for Hopper (sm_90a), with every coordinate
 // decoded in the kernel.
 //
-// Replaces: src/repro/kernels/linearized_pallas.py `_kernel` (launched by
-// `mttkrp_lin_pallas_call`) in both its uses, together with what its
-// callers ran in XLA before calling it: the decodes and factor-row gathers
-// of src/repro/kernels/ops.py `mttkrp_lin`, and those plus the row-wise
-// Kronecker product and the all-ones operand of `ops.ttmc_lin`.
+// Replaces: src/repro/kernels/linearized_pallas.py `_kernel` (pl.pallas_call
+// at :97, launched by `mttkrp_lin_pallas_call`) in both its uses, together
+// with what its callers ran in XLA before calling it: the decodes and
+// factor-row gathers of src/repro/kernels/ops.py `mttkrp_lin` (:114), and
+// those plus the row-wise Kronecker product and the all-ones operand of
+// `ops.ttmc_lin` (:158).
 //
 // Computes, for every stored entry n of the workspace, on the sort mode s,
 // with float32 accumulation, for tensor order 2..8:
@@ -17,24 +18,29 @@
 //   with d_m(c) the digits of c in the mixed radix (R_m), the last fastest.
 // row(n) and every coord_m(n) are bit fields of the entry's packed 64-bit
 // index, stored as two 32-bit words (hi, lo); each field is decoded here
-// with a shift and a mask, and may straddle the two words.
+// with a shift and a mask (segmented.cuh::decode_field), and may straddle
+// the two words (yelp's sort mode 0 puts the row at bits 31..46).
 //
-// What bounds it: as for K1 (mttkrp.cu), memory traffic for MTTKRP and
-// operations for a TTMc hundreds of columns wide.  Each stored entry
-// brings 12 B from device memory (hi, lo, value) against K1's 16 B (row, two
-// ids, value); the decodes are a few integer operations per entry.  The
-// factor rows are gathered at random but stay in the 50 MB L2 at yelp's
-// shape.
+// What bounds it on this card: the stream is 12 B an entry from device
+// memory (hi, lo, value) against K1's 16 B; the factor rows gathered from
+// L2 dominate, as for K1 (mttkrp.cu): at W = 256 the 64-B rows of F_1 and
+// F_2, 2 sectors each, an entry.  The decodes are a few integer operations
+// an entry.
 //
-// Design: K1's, through tile.cuh.  One CTA takes one block of `block`
-// stored entries (the stream is sorted by the sort mode's row and
-// tile-aligned, so a block's rows lie in one row tile), decodes them into
-// shared memory, sums them into a row_tile x R float tile with shared
-// atomics, and adds the touched rows to the zeroed output with global
-// atomics.  The TPU kernel took the gathered factor rows as operands; here
-// the other modes' ids are decoded from the same two words and the rows
-// gathered inside the kernel.  TTMc forms the Kronecker row inside the
-// kernel and splits a wide output across CTAs, as K1 does (tile.cuh).
+// TTMc runs the row-segmented kernel of segmented.cuh on LinStream: the
+// sort mode's stream never decreases in row, padding included (field_offsets
+// makes the sort mode the most significant field, and padding packs its
+// tile's last real row, or an empty tile's first, with value 0), so each
+// warp takes a range of entries, each lane sums its Kronecker run of columns
+// in registers, a group of entries' gathers is in flight at once, and a row
+// is flushed when it changes.  Each entry's fields are decoded once, by the
+// lane that loaded it, before the warp's shuffles broadcast them.
+//
+// MTTKRP still runs the shared tile of tile.cuh: one CTA takes one block of
+// `block` stored entries (the stream is tile-aligned, so a block's rows lie
+// in one row tile), decodes them into shared memory, sums them into a
+// row_tile x R float tile with shared atomics, and adds the touched rows to
+// the zeroed output with global atomics.
 #include <cstdint>
 
 #include "tile.cuh"
@@ -43,38 +49,12 @@ namespace {
 
 constexpr int kMaxOrder = kMaxOther + 1;
 
-struct Field {
-  int offset;
-  int width;
-};
-
-struct OtherFields {
-  Field f[kMaxOther];
-};
-
-// One static (offset, width) field of the packed index; shifts on unsigned
-// words are logical, and every shift count lies in [0, 31].
-__device__ __forceinline__ int decode_field(uint32_t hi, uint32_t lo,
-                                            Field field) {
-  const uint32_t mask =
-      field.width >= 32 ? 0xFFFFFFFFu : ((1u << field.width) - 1u);
-  uint32_t word;
-  if (field.offset >= 32) {
-    word = hi >> (field.offset - 32);
-  } else if (field.offset + field.width <= 32) {
-    word = lo >> field.offset;
-  } else {  // straddles: low part from lo, the rest from hi
-    word = (lo >> field.offset) | (hi << (32 - field.offset));
-  }
-  return static_cast<int>(word & mask);
-}
-
 template <typename TV, typename TF, typename Cols>
 __global__ void __launch_bounds__(kThreads)
 lin_kernel(const uint32_t* __restrict__ hi_words,
            const uint32_t* __restrict__ lo_words, const TV* __restrict__ vals,
            FactorPtrs factors, Cols cols, int n_other, Field row_field,
-           OtherFields other, const int* __restrict__ block_tile,
+           Fields other, const int* __restrict__ block_tile,
            float* __restrict__ out, int block, int row_tile, int num_rows,
            int width, int chunk) {
   extern __shared__ float smem[];
@@ -112,31 +92,21 @@ struct LinArgs {
   FactorPtrs factors;
   int n_other;
   Field row_field;
-  OtherFields other;
+  Fields other;
   const int* block_tile;
   float* out;
   int nblocks, block, row_tile, num_rows, width;
   cudaStream_t stream;
 };
 
-template <typename TV, typename TF, typename Cols>
-int launch(const LinArgs& a, const Cols& cols) {
-  return launch_tiled(lin_kernel<TV, TF, Cols>, a.nblocks, a.width,
+template <typename TV, typename TF>
+int launch_tile(const LinArgs& a) {
+  return launch_tiled(lin_kernel<TV, TF, KhatriRao>, a.nblocks, a.width,
                       a.row_tile, a.block, a.n_other, a.stream, a.hi_words,
                       a.lo_words, static_cast<const TV*>(a.vals), a.factors,
-                      cols, a.n_other, a.row_field, a.other, a.block_tile,
-                      a.out, a.block, a.row_tile, a.num_rows, a.width);
-}
-
-template <typename Cols>
-int launch_typed(const LinArgs& a, const Cols& cols, int vals_bf16,
-                 int factors_bf16) {
-  using bf16 = __nv_bfloat16;
-  if (vals_bf16)
-    return factors_bf16 ? launch<bf16, bf16>(a, cols)
-                        : launch<bf16, float>(a, cols);
-  return factors_bf16 ? launch<float, bf16>(a, cols)
-                      : launch<float, float>(a, cols);
+                      KhatriRao{a.width}, a.n_other, a.row_field, a.other,
+                      a.block_tile, a.out, a.block, a.row_tile, a.num_rows,
+                      a.width);
 }
 
 }  // namespace
@@ -148,7 +118,9 @@ int launch_typed(const LinArgs& a, const Cols& cols, int vals_bf16,
 // bit field (host arrays of `order` ints).  out: a zeroed (num_rows, width)
 // float32 matrix, width = the rank (MTTKRP) or prod ranks (TTMc,
 // kronecker = 1).  vals_bf16 / factors_bf16 select bfloat16 over float32.
-// Returns a cudaError_t.
+// TTMc only: cols_per_lane, segment, ctas and slices give its launch
+// (kernels/mttkrp_cuda.py::ttmc_geometry), and every factor starts on 16
+// bytes; MTTKRP ignores them.  Returns a cudaError_t.
 extern "C" int lin_launch(const void* hi_words, const void* lo_words,
                           const void* vals, int vals_bf16,
                           const void* const* factors, const int* ranks,
@@ -156,7 +128,8 @@ extern "C" int lin_launch(const void* hi_words, const void* lo_words,
                           const int* widths, int order, int sort_mode,
                           const void* block_tile, void* out, int nblocks,
                           int block, int row_tile, int num_rows,
-                          int kronecker, void* stream) {
+                          int kronecker, int cols_per_lane, int segment,
+                          int ctas, int slices, void* stream) {
   if (order < 2 || order > kMaxOrder || sort_mode < 0 || sort_mode >= order)
     return cudaErrorInvalidValue;
   for (int m = 0; m < order; ++m)
@@ -186,10 +159,19 @@ extern "C" int lin_launch(const void* hi_words, const void* lo_words,
   a.num_rows = num_rows;
   a.width = static_cast<int>(width);
   a.stream = static_cast<cudaStream_t>(stream);
-  if (kronecker) {
-    Kronecker cols = {};
-    for (int i = 0; i < n_other; ++i) cols.ranks[i] = ranks[i];
-    return launch_typed(a, cols, vals_bf16, factors_bf16);
-  }
-  return launch_typed(a, KhatriRao{ranks[0]}, vals_bf16, factors_bf16);
+  const long long pnnz = static_cast<long long>(nblocks) * block;
+  const SegmentedGeometry g = {cols_per_lane, segment, ctas, slices};
+  if (kronecker &&
+      !segmented_geometry_ok(g, ranks, n_other, pnnz, width, true))
+    return cudaErrorInvalidValue;
+  return dispatch_types(vals_bf16, factors_bf16, [&](auto tv, auto tf) {
+    using TV = typename decltype(tv)::type;
+    using TF = typename decltype(tf)::type;
+    if (!kronecker) return launch_tile<TV, TF>(a);
+    const LinStream<TV> s = {a.hi_words, a.lo_words,
+                             static_cast<const TV*>(vals), a.row_field,
+                             a.other};
+    return launch_ttmc<TF>(s, a.factors, ranks, n_other, a.width, pnnz, g,
+                           a.out, a.stream);
+  });
 }

@@ -1,40 +1,35 @@
-// The shared-memory output tile that K1's MTTKRP (mttkrp.cu) and K3's
-// MTTKRP and TTMc (linearized.cu) sum one block of stored entries into, and
-// its flush to the output.  K1's TTMc has its own row-segmented kernel in
-// mttkrp.cu and takes only the Kronecker policy's digit split from here, so
-// the tile's Kronecker path now serves K3-TTMc alone.
+// The shared-memory output tile that K3's MTTKRP (linearized.cu, lin_launch
+// with kronecker = 0) sums one block of stored entries into, and its flush
+// to the output.  It now serves K3-MTTKRP alone: K1's MTTKRP and TTMc and
+// K3's TTMc run the row-segmented kernel of segmented.cuh.
+//
+// Replaces, for K3-MTTKRP: the VMEM output tile of
+// src/repro/kernels/linearized_pallas.py `_kernel` (pl.pallas_call at :97),
+// which the TPU zeroes on a tile's first visit of a sequential grid.  What
+// bounds it on this card: the stream (12 B an entry) and the factor rows it
+// gathers from L2; what holds it well under that is this tile's shared
+// atomics (one per entry and column, colliding on yelp's hot rows), three
+// __syncthreads a block and a global atomic per touched (row, column).
 //
 // A CTA first stages its block of entries in shared memory: each entry's
 // row inside the CTA's row tile (or -1 for an entry to leave out), its value
-// widened to float, and the ids of its factor rows in the other modes.  The
-// two kernels differ only there (K1 reads rows and ids from arrays, K3
-// decodes them from the packed index).  Then accumulate_and_flush zeroes the
-// rows the block touches, adds every entry's row product into them with
-// shared atomics, and adds the touched rows to the output with global
-// atomics (the wrapper zeroes the output).
+// widened to float, and the ids of its factor rows in the other modes,
+// decoded from the packed index.  Then accumulate_and_flush zeroes the rows
+// the block touches, adds every entry's row product into them with shared
+// atomics, and adds the touched rows to the output with global atomics (the
+// wrapper zeroes the output).
 //
-// What an entry adds to output column c is val * prod_i F_i[id_i, col_i(c)].
-// A column policy says which column col_i(c) of each other factor feeds c:
-//  * KhatriRao (MTTKRP): col_i(c) = c in every factor, one shared rank;
-//  * Kronecker (TTMc): factor i has its own rank R_i, and col_i(c) are the
-//    digits of c in the mixed radix (R_0, ..., R_{k-1}), the last fastest:
-//    the column order of core/ttmc.py::kron_chain.
+// What an entry adds to output column c is val * prod_i F_i[id_i, c] (the
+// KhatriRao column policy: one shared rank, column c in every factor).
 //
-// The output is `width` columns wide (the rank, or prod R_i).  The shared
-// tile holds row_tile x `chunk` floats, so a wide output is split across
-// CTAs: blockIdx.y owns columns [y * chunk, y * chunk + chunk) and stages
-// the block again.  launch_tiled picks chunk so that the tile and the
-// staging fit the shared memory a CTA may opt in to on the device.
+// The output is R columns wide.  The shared tile holds row_tile x `chunk`
+// floats, so a wide rank is split across CTAs: blockIdx.y owns columns
+// [y * chunk, y * chunk + chunk) and stages the block again.  launch_tiled
+// picks chunk so that the tile and the staging fit the shared memory a CTA
+// may opt in to on the device.
 #pragma once
 
-#include "common.cuh"
-
-constexpr int kThreads = 256;
-constexpr int kMaxOther = 7;  // tensor order up to 8
-
-struct FactorPtrs {
-  const void* p[kMaxOther];
-};
+#include "segmented.cuh"
 
 struct KhatriRao {
   int rank;
@@ -43,21 +38,6 @@ struct KhatriRao {
                                         int (&col)[kMaxOther]) const {
 #pragma unroll
     for (int i = 0; i < kMaxOther; ++i) col[i] = c;
-  }
-};
-
-struct Kronecker {
-  int ranks[kMaxOther];
-  __device__ __forceinline__ int stride(int i) const { return ranks[i]; }
-  __device__ __forceinline__ void split(int c, int n_other,
-                                        int (&col)[kMaxOther]) const {
-#pragma unroll
-    for (int i = kMaxOther - 1; i >= 0; --i) {
-      if (i < n_other) {
-        col[i] = c % ranks[i];
-        c /= ranks[i];
-      }
-    }
   }
 };
 
@@ -181,24 +161,6 @@ __device__ void accumulate_and_flush(const TileSmem& s,
       atomicAdd(out + static_cast<long long>(row) * width + own.c0 + e % cw,
                 a);
   }
-}
-
-// Checks the launch geometry shared by every entry point and returns the
-// output width, or -1 when the arguments are invalid.  Khatri-Rao needs
-// every rank equal; Kronecker multiplies them.
-inline long long output_width(const int* ranks, int n_other, bool kronecker) {
-  if (n_other < 1 || n_other > kMaxOther) return -1;
-  long long width = kronecker ? 1 : ranks[0];
-  for (int i = 0; i < n_other; ++i) {
-    if (ranks[i] < 1) return -1;
-    if (kronecker) {
-      width *= ranks[i];
-      if (width > (1 << 30)) return -1;
-    } else if (ranks[i] != ranks[0]) {
-      return -1;
-    }
-  }
-  return width;
 }
 
 // Picks the CTA's columns, sets the kernel's dynamic shared memory and

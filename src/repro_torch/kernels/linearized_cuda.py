@@ -8,7 +8,10 @@ ran in XLA.  The kernel runs on the workspace's sort mode only; the design
 notes are at the top of the CUDA source.  The plain versions are
 :func:`repro_torch.kernels.ref.mttkrp_lin_ref` and :func:`~repro_torch.
 kernels.ref.ttmc_lin_ref`; these wrappers take CUDA tensors only and launch
-or raise.
+or raise.  The TTMc runs the row-segmented kernel of ``csrc/segmented.cuh``
+on the packed stream, with the launch of :func:`~repro_torch.kernels.
+mttkrp_cuda.ttmc_geometry`; the MTTKRP still runs the shared tile of
+``csrc/tile.cuh``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from repro_torch.core.linearized import Linearized
 
 from . import _build
+from .mttkrp_cuda import SegmentedGeometry, ttmc_geometry
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_ORDER = 8
@@ -32,7 +36,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("linearized")
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.lin_launch.argtypes = [p, p, p, i, ctypes.POINTER(ctypes.c_void_p),
-                               ip, i, ip, ip, i, i, p, p, i, i, i, i, i, p]
+                               ip, i, ip, ip, i, i, p, p, i, i, i, i, i, i, i,
+                               i, i, p]
     lib.lin_launch.restype = ctypes.c_int
     return lib
 
@@ -73,6 +78,9 @@ def _check_inputs(lin: Linearized, factors: Sequence[torch.Tensor],
                              f"{(lin.dims[m], rank)}")
         if not f.is_contiguous():
             raise ValueError(f"factor {m} is not contiguous")
+        if kronecker and f.data_ptr() % 16:
+            raise ValueError(f"factor {m} does not start on 16 bytes (the "
+                             "TTMc kernel reads its rows in 16-byte loads)")
         ranks.append(rank)
     for name in ("hi", "lo", "vals", "block_tile"):
         x = getattr(lin, name)
@@ -102,6 +110,8 @@ def _launch(lin: Linearized, factors: Sequence[torch.Tensor], mode: int, *,
     c_ranks = (ctypes.c_int * len(other))(*ranks)
     offsets = (ctypes.c_int * lin.order)(*lin.offsets)
     widths = (ctypes.c_int * lin.order)(*lin.widths)
+    geo = (ttmc_geometry(lin.padded_nnz, ranks) if kronecker
+           else SegmentedGeometry(0, 0, 0, 0))
     stream = torch.cuda.current_stream(lin.vals.device).cuda_stream
     code = lib.lin_launch(
         lin.hi.data_ptr(), lin.lo.data_ptr(), lin.vals.data_ptr(),
@@ -109,7 +119,7 @@ def _launch(lin: Linearized, factors: Sequence[torch.Tensor], mode: int, *,
         int(fdtype == torch.bfloat16), offsets, widths, lin.order,
         lin.sort_mode, lin.block_tile.data_ptr(), out.data_ptr(),
         lin.num_blocks, lin.block, lin.row_tile, lin.num_rows, int(kronecker),
-        stream)
+        geo.cols_per_lane, geo.segment, geo.ctas, geo.slices, stream)
     _build.check(lib, code, "lin_launch kernel launch")
     return out if fdtype == torch.float32 else out.to(fdtype)
 

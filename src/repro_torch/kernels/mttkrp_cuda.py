@@ -4,12 +4,13 @@ and TTMc.
 Replaces ``src/repro/kernels/mttkrp_pallas.py`` (the TPU one-hot
 segment-matmul kernel) in both its uses, and the factor-row gathers (and
 for TTMc the Kronecker rows and all-ones operand) its callers ran in XLA.
-The design notes are at the top of the CUDA source: for MTTKRP one CTA
-per block of non-zeros, a shared-memory tile and atomics into a zeroed
-output (``csrc/tile.cuh``); for TTMc one warp per range of stored entries,
-each lane's output columns summed in registers and flushed when the row
-changes, with the launch picked here by :func:`ttmc_geometry`.  Both gather
-the factor rows inside the kernel.  The plain versions are
+Both uses run the row-segmented kernel of ``csrc/segmented.cuh``: one warp
+per range of the row-sorted stream, each lane's output columns summed in
+registers and flushed when the row changes, the factor rows gathered inside
+the kernel.  The launch is picked here, by :func:`mttkrp_geometry` (lane l
+owns columns l + 32 k of the rank) and :func:`ttmc_geometry` (a lane owns a
+run of consecutive Kronecker columns); the design notes are at the top of
+the CUDA sources.  The plain versions are
 :func:`repro_torch.kernels.ref.mttkrp_ref` and :func:`~repro_torch.kernels.
 ref.ttmc_ref`; these wrappers take CUDA tensors only and launch or raise.
 """
@@ -28,16 +29,18 @@ from repro_torch.core.csf import CSF
 from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-LANES = 32               # kLanes in csrc/mttkrp.cu
+LANES = 32               # kLanes in csrc/segmented.cuh
 WARPS = 8                # kWarps: kThreads / kLanes
-MAX_COLS_PER_LANE = 16   # the widest Item the kernel is built for
-TTMC_SEGMENT = 512       # stored entries a warp takes
+MAX_COLS_PER_LANE = 16   # the widest KroneckerRun the kernel is built for
+MTTKRP_COLS = (1, 2, 4, 8)  # the K of KhatriRaoStrided the kernel is built for
+SEGMENT = 512            # stored entries a warp takes
 
 
 @dataclasses.dataclass(frozen=True)
-class TTMcGeometry:
-    """One K1-TTMc launch: each lane sums ``cols_per_lane`` consecutive
-    output columns, each warp ``segment`` consecutive stored entries, over
+class SegmentedGeometry:
+    """One launch of the row-segmented kernel: each lane sums
+    ``cols_per_lane`` output columns (consecutive for TTMc, 32 apart for
+    MTTKRP), each warp ``segment`` consecutive stored entries, over
     ``ctas`` x ``slices`` CTAs (``slices`` along the width)."""
 
     cols_per_lane: int
@@ -50,7 +53,14 @@ class TTMcGeometry:
         return self.ctas * WARPS
 
 
-def ttmc_geometry(padded_nnz: int, ranks: Sequence[int]) -> TTMcGeometry:
+def _ctas(padded_nnz: int) -> int:
+    """CTAs that give every stored entry a warp, one range of SEGMENT
+    entries a warp."""
+    warps = -(-padded_nnz // SEGMENT)
+    return max(1, -(-warps // WARPS))
+
+
+def ttmc_geometry(padded_nnz: int, ranks: Sequence[int]) -> SegmentedGeometry:
     """The launch for a TTMc over ``padded_nnz`` stored entries and the
     other modes' ``ranks`` (ascending mode order; width = their product).
 
@@ -68,10 +78,28 @@ def ttmc_geometry(padded_nnz: int, ranks: Sequence[int]) -> TTMcGeometry:
         cpl *= 2
     while ranks[-1] % cpl:
         cpl //= 2
-    warps = -(-padded_nnz // TTMC_SEGMENT)
-    return TTMcGeometry(cols_per_lane=cpl, segment=TTMC_SEGMENT,
-                        ctas=max(1, -(-warps // WARPS)),
-                        slices=-(-width // (LANES * cpl)))
+    return SegmentedGeometry(cols_per_lane=cpl, segment=SEGMENT,
+                             ctas=_ctas(padded_nnz),
+                             slices=-(-width // (LANES * cpl)))
+
+
+def mttkrp_geometry(padded_nnz: int, rank: int) -> SegmentedGeometry:
+    """The launch for an MTTKRP over ``padded_nnz`` stored entries at
+    ``rank``.
+
+    Lane l owns columns l + 32 k for k < K: K is the fewest of MTTKRP_COLS
+    that cover the rank in one slice (at R = 35, K = 2 and the second group
+    runs on lanes 0-2), so a warp gathers a factor row as one coalesced run.
+    Past 32 x 8 = 256 columns the rank takes more slices of 256, each
+    reading the stream again."""
+    if padded_nnz < 0 or rank < 1:
+        raise ValueError(f"no MTTKRP launch for {padded_nnz} entries, rank "
+                         f"{rank}")
+    need = -(-rank // LANES)
+    k = next((k for k in MTTKRP_COLS if k >= need), MTTKRP_COLS[-1])
+    return SegmentedGeometry(cols_per_lane=k, segment=SEGMENT,
+                             ctas=_ctas(padded_nnz),
+                             slices=-(-rank // (LANES * k)))
 
 
 @functools.cache
@@ -79,7 +107,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("mttkrp")
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.csf_launch.argtypes = [p, p, p, i, ctypes.POINTER(ctypes.c_void_p),
-                               ip, i, i, p, p, i, i, i, i, i, i, i, i, i, p]
+                               ip, i, i, p, ctypes.c_longlong, i, i, i, i, i,
+                               p]
     lib.csf_launch.restype = ctypes.c_int
     return lib
 
@@ -115,15 +144,13 @@ def _check_inputs(csf: CSF, factors: Sequence[torch.Tensor], *,
             raise ValueError(f"factor {m} does not start on 16 bytes (the "
                              "TTMc kernel reads its rows in 16-byte loads)")
         ranks.append(rank)
-    for name in ("row_ids", "other_ids", "vals", "block_tile"):
+    for name in ("row_ids", "other_ids", "vals"):
         x = getattr(csf, name)
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"workspace {name} must be contiguous on {dev}")
-    for name in ("row_ids", "other_ids", "block_tile"):
+    for name in ("row_ids", "other_ids"):
         if getattr(csf, name).dtype != torch.int32:
             raise TypeError(f"workspace {name} must be int32")
-    if csf.padded_nnz % csf.block:
-        raise ValueError("padded nnz is not a multiple of the block")
     return tuple(ranks)
 
 
@@ -142,15 +169,14 @@ def _launch(csf: CSF, factors: Sequence[torch.Tensor], *,
         *[factors[m].data_ptr() for m in other])
     c_ranks = (ctypes.c_int * len(other))(*ranks)
     geo = (ttmc_geometry(csf.padded_nnz, ranks) if kronecker
-           else TTMcGeometry(0, 0, 0, 0))
+           else mttkrp_geometry(csf.padded_nnz, width))
     stream = torch.cuda.current_stream(csf.vals.device).cuda_stream
     code = lib.csf_launch(
         csf.row_ids.data_ptr(), csf.other_ids.data_ptr(), csf.vals.data_ptr(),
         int(csf.vals.dtype == torch.bfloat16), ptrs, c_ranks, len(other),
-        int(fdtype == torch.bfloat16), csf.block_tile.data_ptr(),
-        out.data_ptr(), csf.num_blocks, csf.block, csf.row_tile,
-        csf.num_rows, int(kronecker), geo.cols_per_lane, geo.segment,
-        geo.ctas, geo.slices, stream)
+        int(fdtype == torch.bfloat16), out.data_ptr(), csf.padded_nnz,
+        int(kronecker), geo.cols_per_lane, geo.segment, geo.ctas, geo.slices,
+        stream)
     _build.check(lib, code, "csf_launch kernel launch")
     return out if fdtype == torch.float32 else out.to(fdtype)
 

@@ -20,6 +20,8 @@ from repro_torch.core.linearized import field_offsets
 from repro_torch.kernels import (_build, linearized_cuda, mttkrp_cuda, ops,
                                  ref, syrk_cuda)
 
+from torch_yelp_cases import YELP, hot_yelp_tensor
+
 
 def _tol(skew, dtype):
     if dtype == torch.bfloat16:
@@ -258,11 +260,11 @@ def test_linearized_kernel_with_empty_tiles_on_card(cuda):
 @pytest.mark.parametrize("rank,block,row_tile", [(35, 512, 128),
                                                  (500, 512, 128),
                                                  (1000, 64, 128)])
-def test_mttkrp_kernel_unchanged_by_the_ttmc_tile(cuda, rank, block,
-                                                  row_tile):
-    """K1's MTTKRP after tile.cuh took the column policies and the width
-    split: yelp's geometry, and ranks whose row_tile x rank tile passes a
-    CTA's shared memory, so the launch splits the width."""
+def test_mttkrp_kernel_slices_wide_ranks_on_card(cuda, rank, block,
+                                                row_tile):
+    """K1's MTTKRP at yelp's geometry, and at ranks past one slice of 256
+    columns (32 lanes x 8), so the launch splits the rank over
+    blockIdx.y."""
     t = random_sparse((300, 200, 100), 6000, 9, skew=1.5, device=cuda)
     f = init_factors(t.dims, rank, 10, device=cuda)
     csf = build_csf(t, 0, block=block, row_tile=row_tile)
@@ -441,7 +443,7 @@ def test_ttmc_geometry_covers_every_entry(pnnz):
     (yelp's padded entry counts among them)."""
     geo = mttkrp_cuda.ttmc_geometry(pnnz, (16, 16))
     seg = geo.segment
-    assert seg == mttkrp_cuda.TTMC_SEGMENT and seg % mttkrp_cuda.LANES == 0
+    assert seg == mttkrp_cuda.SEGMENT and seg % mttkrp_cuda.LANES == 0
     assert geo.ctas >= 1 and geo.warps * seg >= pnnz
     assert (geo.warps - mttkrp_cuda.WARPS) * seg < max(pnnz, 1)
 
@@ -588,3 +590,126 @@ def test_ttmc_kernel_refuses_a_factor_off_16_bytes_on_card(cuda):
     with pytest.raises(ValueError, match="16 bytes"):
         mttkrp_cuda.ttmc(build_csf(t, 0), f)
     assert mttkrp_cuda.ttmc.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K3-TTMc and K1-MTTKRP on the row-segmented body (csrc/segmented.cuh)
+# ---------------------------------------------------------------------------
+
+def _segment_tensor(kind, device):
+    """``hot``: yelp's dims, a hot row in modes 0 and 1 over several warp
+    ranges; ``hot-empty``: the same with row tile 1 of modes 0 and 1 empty
+    (one padding block); ``skew``: yelp's dims at skew 2.0."""
+    if kind == "skew":
+        return random_sparse(YELP, 30_000, 37, skew=2.0, device=device)
+    return hot_yelp_tensor(device, empty_tiles=kind == "hot-empty")
+
+
+# (tensor, sort mode, ranks, dtype): sort mode 0's row field straddles the
+# two words at yelp's dims, sort mode 1's lies in the high word
+CARD_TTMC_LIN_SEGMENT_CASES = [
+    (kind, mode, (16, 16, 16), torch.float32)
+    for kind in ("hot", "hot-empty", "skew") for mode in (0, 1)
+] + [
+    ("hot-empty", 0, (4, 3, 5), torch.float32),    # W = 15
+    ("hot", 0, (4, 24, 24), torch.float32),        # W = 576, 3 slices
+    ("hot", 1, (16, 4, 32), torch.float32),        # 16 columns a lane
+    ("skew", 1, (5, 7, 3), torch.float32),         # W = 15, odd last rank
+    ("hot-empty", 0, (16, 16, 16), torch.bfloat16),
+    ("hot", 1, (4, 16, 32), torch.bfloat16),
+    ("skew", 0, (4, 4, 12), torch.bfloat16),       # 2 columns a lane
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mode,ranks,dtype", CARD_TTMC_LIN_SEGMENT_CASES)
+def test_ttmc_linearized_kernel_row_segments_on_card(cuda, kind, mode, ranks,
+                                                     dtype):
+    """K3-TTMc against its plain version and against K1-TTMc on the same
+    mode's CSF: hot rows over several warp ranges, all-padding blocks,
+    widths off 32 and past one slice, bfloat16."""
+    t = _segment_tensor(kind, cuda)
+    f = _ttmc_factors(t.dims, ranks, 38, cuda, dtype)
+    lin = build_linearized(t, sort_mode=mode)
+    before = linearized_cuda.ttmc.launches
+    got = ops.ttmc_lin(lin, f, mode)
+    k1 = ops.ttmc(build_csf(t, mode), f)
+    torch.cuda.synchronize()
+    assert linearized_cuda.ttmc.launches == before + 1
+    _check_ttmc(got, ref.ttmc_lin_ref(lin, f, mode), t.dims, mode, ranks,
+                dtype, 0.0)
+    _check_ttmc(got, k1, t.dims, mode, ranks, dtype, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks,mode", [((2, 5, 7, 3), 0),      # W = 105
+                                        ((4, 10, 10, 12), 0),   # W = 1200
+                                        ((8, 8, 8, 8), 1),      # W = 512
+                                        ((5, 7, 3, 2), 3)])
+def test_ttmc_linearized_kernel_order_four_widths_on_card(cuda, ranks, mode):
+    t = random_sparse((20, 15, 12, 10), 2000, 39, skew=1.0, device=cuda)
+    f = _ttmc_factors(t.dims, ranks, 40, cuda)
+    lin = build_linearized(t, block=128, row_tile=64, sort_mode=mode)
+    got = ops.ttmc_lin(lin, f, mode)
+    k1 = ops.ttmc(build_csf(t, mode, block=128, row_tile=64), f)
+    torch.cuda.synchronize()
+    _check_ttmc(got, ref.ttmc_lin_ref(lin, f, mode), t.dims, mode, ranks,
+                torch.float32, 1.0)
+    _check_ttmc(got, k1, t.dims, mode, ranks, torch.float32, 1.0)
+
+
+@pytest.mark.cuda
+def test_ttmc_linearized_kernel_refuses_a_factor_off_16_bytes_on_card(cuda):
+    t = random_sparse((30, 20, 10), 300, 41, device=cuda)
+    f = list(_ttmc_factors(t.dims, (4, 4, 4), 42, cuda))
+    f[2] = torch.rand(10 * 4 + 1, device=cuda)[1:].view(10, 4)
+    before = linearized_cuda.ttmc.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        linearized_cuda.ttmc(build_linearized(t, sort_mode=0), f, 0)
+    assert linearized_cuda.ttmc.launches == before
+
+
+# (tensor, mode, rank, dtype)
+CARD_MTTKRP_SEGMENT_CASES = (
+    [("skew", 0, r, torch.float32) for r in (3, 8, 35, 64, 128, 150)]
+    + [(kind, mode, 35, torch.float32)
+       for kind in ("hot", "hot-empty") for mode in (0, 1, 2)]
+    + [("skew", 1, 35, torch.float32), ("hot", 1, 300, torch.float32),
+       ("hot-empty", 0, 35, torch.bfloat16),
+       ("skew", 1, 150, torch.bfloat16)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mode,rank,dtype", CARD_MTTKRP_SEGMENT_CASES)
+def test_mttkrp_kernel_row_segments_on_card(cuda, kind, mode, rank, dtype):
+    """K1-MTTKRP's Khatri-Rao map (lane l owns columns l + 32 k): ranks off
+    and past 32, hot rows over several warp ranges, all-padding blocks,
+    two slices at 300, bfloat16."""
+    t = _segment_tensor(kind, cuda)
+    f = tuple(a.to(dtype) for a in init_factors(t.dims, rank, 43,
+                                                device=cuda))
+    csf = build_csf(t, mode)
+    before = mttkrp_cuda.mttkrp.launches
+    got = ops.mttkrp(csf, f)
+    torch.cuda.synchronize()
+    assert mttkrp_cuda.mttkrp.launches == before + 1
+    assert got.dtype == dtype and got.shape == (t.dims[mode], rank)
+    tol = _tol(0.0, dtype)
+    torch.testing.assert_close(got.float(),
+                               ref.mttkrp_ref(csf, f).to(dtype).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [35, 150])
+@pytest.mark.parametrize("mode", [0, 3])
+def test_mttkrp_kernel_order_four_on_card(cuda, rank, mode):
+    """Order 4 runs the kernel compiled for a run-time number of modes."""
+    t = random_sparse((20, 15, 12, 10), 2000, 44, skew=1.0, device=cuda)
+    f = init_factors(t.dims, rank, 45, device=cuda)
+    csf = build_csf(t, mode, block=128, row_tile=64)
+    got = ops.mttkrp(csf, f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.mttkrp_ref(csf, f), rtol=5e-4,
+                               atol=5e-4)
