@@ -33,7 +33,13 @@ Phases; any failure raises and exits non-zero:
    the host build timed.  On each sort mode the kernel against its plain
    version (float32 at 1e-4, bfloat16 at 5e-2) and against K1 on that
    mode's CSF (1e-4: the same function on another layout), timed beside
-   its bound (12 B a stored entry, the gathered factors, the output).
+   its bound (12 B a stored entry, the gathered factors, the output) and
+   its L2 gathers.  Then the off-sort kernel on every other mode of each
+   sort mode (sort mode 1 puts mode 0's field across the words), held to
+   the same plain version and K1 at the same limits, timed beside its
+   bound, its L2 gathers and its atomic bytes (runs of equal rows x width
+   x 4 B, each run ending where the row changes or a warp's range ends)
+   and their rate.
 5. The main path: ``repro_torch.methods.fit(t, 35, method="cp_als",
    impl="cuda", niters=20, timers=...)`` on yelp, with every launch count
    set to 0 just before and read just after: MTTKRP must launch 3 modes x
@@ -45,9 +51,9 @@ Phases; any failure raises and exits non-zero:
    amplify that to a relative 1e-3 to 7e-3 already.
 6. The linearized path: the same fit with ``impl="linearized_cuda"`` from
    the same state, the counts set to 0 just before: K3 launches 20 times
-   (the sort mode, once an iteration; the other modes decode and
-   ``index_add_``), K1 and SYRK none; held to ``segment`` as in phase 5.
-   Its routine times print beside the CSF fit's.
+   (the sort mode, once an iteration) and the off-sort kernel 40 (modes 1
+   and 2), K1 and SYRK none; held to ``segment`` as in phase 5.  Its
+   routine times print beside the CSF fit's.
 7. The measured planner: ``plan_decomposition(t, "auto", rank=35,
    calibrate=True, autotune=<temporary store>)`` prints each mode's
    measured ms per candidate and the winner; a second plan on the same
@@ -58,12 +64,14 @@ Phases; any failure raises and exits non-zero:
    fitted factors, with the counts set to 0 just before; 3 launches, and
    the model's norm from those Grams within 1e-4 of the plain Grams'.
 9. The TTMc kernels at Kronecker width: K1-TTMc on each mode's CSF of the
-   yelp tensor and K3-TTMc on sort modes 0 and 1, at Tucker ranks
-   (16, 16, 16) (W = 256), each against its plain version (float32 at
-   1e-4, bfloat16 at 5e-2), K3-TTMc also against K1-TTMc on the same
-   mode's CSF, timed beside their bounds and beside the factor rows each
-   gathers from L2 and their rate; then one thin SVD of mode 2's Y
-   (75 000 x 256), the library call the fit makes after each TTMc.
+   yelp tensor, K3-TTMc on sort modes 0 and 1 and the off-sort TTMc on
+   every other mode of each, at Tucker ranks (16, 16, 16) (W = 256), each
+   against its plain version (float32 at 1e-4, bfloat16 at 5e-2), the
+   linearized ones also against K1-TTMc on the same mode's CSF, timed
+   beside their bounds and beside the factor rows each gathers from L2 and
+   their rate (the off-sort one also beside its atomic bytes and their
+   rate); then one thin SVD of mode 2's Y (75 000 x 256), the library call
+   the fit makes after each TTMc.
 10. The Tucker path: ``fit(t, (16, 16, 16), method="tucker_hooi",
    impl="cuda", niters=8, timers=...)`` with every count set to 0 just
    before: K1-TTMc launches 3 x 8 = 24 times, nothing else.  Held to the
@@ -75,8 +83,8 @@ Phases; any failure raises and exits non-zero:
    (computed in float64 from U^T U, U'^T U' and U^T U').  The gap between
    sigma_R and sigma_{R+1} of each mode's final Y is printed beside it.
 11. The linearized Tucker path: the same fit with
-   ``impl="linearized_cuda"``: K3-TTMc launches 8 times (sort mode 0;
-   modes 1 and 2 decode and ``index_add_``), nothing else; held to
+   ``impl="linearized_cuda"``: K3-TTMc launches 8 times (sort mode 0) and
+   the off-sort TTMc 16 (modes 1 and 2), nothing else; held to
    ``segment`` as in phase 10.
 12. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -111,6 +119,36 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def totals() -> dict[str, float]:
+    """A kernel's times and bound summed over the calls the main path makes,
+    and its largest error over every call checked."""
+    return dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
+                          "max_abs_err"), 0.0)
+
+
+def add_times(acc, ms: float, plain_ms: float, nbytes: float,
+              ops_count: float) -> None:
+    """Add one call's times and bound to a kernel's totals."""
+    acc["ms"] += ms
+    acc["plain_ms"] += plain_ms
+    acc["bound_ms"] += bound(nbytes, ops_count)[0]
+    acc["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+    acc["ops_ms"] += ops_count / FP32_FLOP_PER_S * 1e3
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, acc,
+                 **extra) -> dict:
+    """One kernel's object of the ``{"kernels": ...}`` line."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, **extra, "launches": launches,
+            "max_abs_err": acc["max_abs_err"], "ms": acc["ms"],
+            "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
+            "bound_by": ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
+                         else "operations"),
+            "library_ms": acc.get("library_ms")}
 
 
 def time_ms(torch, fn, *, warmup: int = 3, reps: int = 15) -> float:
@@ -180,6 +218,17 @@ def gathered_bytes(ids, row_bytes) -> int:
         first = i.long() * b
         sectors += int(((first + b - 1) // 32 - first // 32 + 1).sum())
     return 32 * sectors
+
+
+def atomic_runs(torch, rows, segment: int) -> int:
+    """Runs of equal rows the off-sort kernel adds to its output with
+    atomics in one call: a run ends where the row changes or where a warp's
+    range of ``segment`` stored entries ends.  ``rows``: the (pnnz,) target
+    rows the kernel decodes, padding included."""
+    new = torch.ones_like(rows, dtype=torch.bool)
+    new[1:] = rows[1:] != rows[:-1]
+    new[::segment] = True
+    return int(new.sum())
 
 
 def build_lines(log: str) -> list[tuple[str, int, int, int]]:
@@ -272,7 +321,9 @@ def main() -> int:
 
     counters = {"mttkrp": mttkrp_cuda.mttkrp, "syrk": syrk_cuda.syrk,
                 "mttkrp_lin": linearized_cuda.mttkrp,
-                "ttmc": mttkrp_cuda.ttmc, "ttmc_lin": linearized_cuda.ttmc}
+                "mttkrp_off_sort": linearized_cuda.mttkrp_off_sort,
+                "ttmc": mttkrp_cuda.ttmc, "ttmc_lin": linearized_cuda.ttmc,
+                "ttmc_off_sort": linearized_cuda.ttmc_off_sort}
     none = dict.fromkeys(counters, 0)
 
     def zero_counts() -> None:
@@ -322,8 +373,7 @@ def main() -> int:
           + ", ".join(f"({c.num_rows}, {c.padded_nnz}, {c.num_blocks})"
                       for c in csfs))
     factors = init_factors(t.dims, RANK, args.seed + 1, device=dev)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-          "ops_ms": 0.0, "max_abs_err": 0.0}
+    k1 = totals()
     for csf in csfs:
         got = ops.mttkrp(csf, factors)
         want = ref.mttkrp_ref(csf, factors)
@@ -348,17 +398,12 @@ def main() -> int:
               f"({b_by}, {nbytes / 1e6:.1f} MB); L2 gathers "
               f"{gathered / 1e9:.3f} GB at {gathered / ms / 1e6:.1f} GB/s; "
               f"{mttkrp_cuda.mttkrp_geometry(csf.padded_nnz, RANK)}")
-        k1["ms"] += ms
-        k1["plain_ms"] += plain_ms
-        k1["bound_ms"] += b_ms
-        k1["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-        k1["ops_ms"] += ops_count / FP32_FLOP_PER_S * 1e3
+        add_times(k1, ms, plain_ms, nbytes, ops_count)
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
     del got, want
 
     # --- 3. K2: SYRK at the factor shapes ----------------------------------
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0}
+    k2 = dict(totals(), library_ms=0.0)
     for m, a in enumerate(factors):
         err = max_err(torch, ops.syrk(a), ref.syrk_ref(a), rtol=1e-4,
                       atol=1e-3, what=f"K2 factor {m}")
@@ -382,11 +427,8 @@ def main() -> int:
               f"{run_library_ms:.4f}; device us a call (torch.profiler): "
               f"{dev_us if dev_us else 'not measured'} library "
               f"{dev_library_us if dev_library_us else 'not measured'}")
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", library_ms), ("bound_ms", b_ms),
-                         ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
-                         ("ops_ms", ops_count / FP32_FLOP_PER_S * 1e3)):
-            k2[key] += val
+        add_times(k2, ms, plain_ms, nbytes, ops_count)
+        k2["library_ms"] += library_ms
         k2["max_abs_err"] = max(k2["max_abs_err"], err)
 
     # the steady-state epilogue per mode update, apart from the one-off
@@ -403,7 +445,24 @@ def main() -> int:
           + " ".join(f"{ms:.4f}" for ms in epilogue_ms))
 
     # --- 4. K3: MTTKRP on the linearized workspace ------------------------
-    k3 = {"max_abs_err": 0.0}
+    def lin_mttkrp_bound(lin, mode: int):
+        """Bytes, operations and bound of one linearized MTTKRP call on
+        ``mode``: 12 B a stored entry, the other factors, the output."""
+        nbytes = (lin.padded_nnz * 12
+                  + sum(t.dims[m] * RANK * 4 for m in range(t.order)
+                        if m != mode)
+                  + t.dims[mode] * RANK * 4)
+        ops_count = lin.padded_nnz * RANK * t.order
+        return nbytes, ops_count, *bound(nbytes, ops_count)
+
+    def lin_gathers(lin, mode: int, ranks) -> int:
+        """L2 sector bytes of the factor rows a linearized call on ``mode``
+        gathers, the factors of ``ranks`` in float32."""
+        others = [m for m in range(t.order) if m != mode]
+        return gathered_bytes([lin.decode(m) for m in others],
+                              [ranks[m] * 4 for m in others])
+
+    k3, k3off = totals(), totals()
     lins = {}  # kept for the TTMc phase
     for sm in (0, 1):
         t0 = time.perf_counter()
@@ -426,18 +485,42 @@ def main() -> int:
         ms = time_ms(torch, lambda: ops.mttkrp_lin(lin, factors, sm))
         plain_ms = time_ms(torch,
                            lambda: ref.mttkrp_lin_ref(lin, factors, sm))
-        nbytes = (lin.padded_nnz * 12
-                  + sum(t.dims[m] * RANK * 4 for m in range(t.order)
-                        if m != sm)
-                  + t.dims[sm] * RANK * 4)
-        ops_count = lin.padded_nnz * RANK * t.order
-        b_ms, b_by = bound(nbytes, ops_count)
+        nbytes, ops_count, b_ms, b_by = lin_mttkrp_bound(lin, sm)
+        gathered = lin_gathers(lin, sm, [RANK] * t.order)
         print(f"[K3] sort mode {sm} err f32={err:.3e} vs K1={err_k1:.3e} "
               f"bf16={err_bf16:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+              f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB); L2 "
+              f"gathers {gathered / 1e9:.3f} GB at "
+              f"{gathered / ms / 1e6:.1f} GB/s")
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
         if sm == 0:  # the sort mode the linearized fit runs
-            k3.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            add_times(k3, ms, plain_ms, nbytes, ops_count)
+        for tm in (m for m in range(t.order) if m != sm):
+            got = ops.mttkrp_lin(lin, factors, tm)
+            what = f"off-sort MTTKRP sort mode {sm} mode {tm}"
+            err = max_err(torch, got, ref.mttkrp_lin_ref(lin, factors, tm),
+                          rtol=1e-4, atol=1e-4, what=f"{what} float32")
+            err_k1 = max_err(torch, got, ops.mttkrp(csfs[tm], factors),
+                             rtol=1e-4, atol=1e-4, what=f"{what} vs K1")
+            err_bf16 = max_err(torch, ops.mttkrp_lin(lin, fb, tm),
+                               ref.mttkrp_lin_ref(lin, fb, tm).bfloat16(),
+                               rtol=5e-2, atol=5e-2, what=f"{what} bfloat16")
+            ms = time_ms(torch, lambda: ops.mttkrp_lin(lin, factors, tm))
+            plain_ms = time_ms(torch,
+                               lambda: ref.mttkrp_lin_ref(lin, factors, tm))
+            nbytes, ops_count, b_ms, b_by = lin_mttkrp_bound(lin, tm)
+            gathered = lin_gathers(lin, tm, [RANK] * t.order)
+            red = atomic_runs(torch, lin.decode(tm), mttkrp_cuda.SEGMENT)
+            print(f"[K3-off] sort mode {sm} mode {tm} err f32={err:.3e} vs "
+                  f"K1={err_k1:.3e} bf16={err_bf16:.3e} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+                  f"{nbytes / 1e6:.1f} MB); L2 gathers {gathered / 1e9:.3f} "
+                  f"GB at {gathered / ms / 1e6:.1f} GB/s; atomics {red} runs"
+                  f" x {RANK} x 4 B = {red * RANK * 4 / 1e9:.3f} GB at "
+                  f"{red * RANK * 4 / ms / 1e6:.1f} GB/s")
+            k3off["max_abs_err"] = max(k3off["max_abs_err"], err)
+            if sm == 0:  # the modes the linearized fit runs off the sort
+                add_times(k3off, ms, plain_ms, nbytes, ops_count)
         lins[sm] = lin
         del lin, got
 
@@ -493,9 +576,11 @@ def main() -> int:
 
     # --- 6. the linearized path ---------------------------------------------
     dec_lin, lin_times, lin_launches = timed_fit(
-        "linearized_cuda", dict(none, mttkrp_lin=NITERS))
+        "linearized_cuda", dict(none, mttkrp_lin=NITERS,
+                                mttkrp_off_sort=(t.order - 1) * NITERS))
     check_against_segment(dec_lin, "impl=linearized_cuda")
-    launches["mttkrp_lin"] = lin_launches["mttkrp_lin"]
+    for name in ("mttkrp_lin", "mttkrp_off_sort"):
+        launches[name] = lin_launches[name]
     print("[fit] routine s (csf cuda | linearized_cuda): "
           + " ".join(f"{k}={csf_times[k]:.4f}|{lin_times[k]:.4f}"
                      for k in ("sort", "mttkrp", "epilogue", "wall")))
@@ -586,8 +671,7 @@ def main() -> int:
         ops_count = t.nnz * per_entry
         return nbytes, ops_count, *bound(nbytes, ops_count)
 
-    k1t = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-           "ops_ms": 0.0, "max_abs_err": 0.0}
+    k1t = totals()
     y_by_mode = {}
     for csf in csfs:
         got = ops.ttmc(csf, tf)
@@ -610,14 +694,10 @@ def main() -> int:
               f"{ops_count / 1e9:.2f} GFLOP); L2 gathers "
               f"{gathered / 1e9:.3f} GB at {gathered / ms / 1e6:.1f} GB/s; "
               f"{geo}")
-        k1t["ms"] += ms
-        k1t["plain_ms"] += plain_ms
-        k1t["bound_ms"] += b_ms
-        k1t["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-        k1t["ops_ms"] += ops_count / FP32_FLOP_PER_S * 1e3
+        add_times(k1t, ms, plain_ms, nbytes, ops_count)
         k1t["max_abs_err"] = max(k1t["max_abs_err"], err)
         y_by_mode[csf.mode] = got
-    k3t = {"max_abs_err": 0.0}
+    k3t, k3toff = totals(), totals()
     for sm, lin in lins.items():
         got = ops.ttmc_lin(lin, tf, sm)
         err = max_err(torch, got, ref.ttmc_lin_ref(lin, tf, sm), rtol=1e-4,
@@ -631,9 +711,7 @@ def main() -> int:
         ms = time_ms(torch, lambda: ops.ttmc_lin(lin, tf, sm))
         plain_ms = time_ms(torch, lambda: ref.ttmc_lin_ref(lin, tf, sm))
         nbytes, ops_count, b_ms, b_by = ttmc_bound(12, lin.padded_nnz, sm)
-        others = [m for m in range(t.order) if m != sm]
-        gathered = gathered_bytes([lin.decode(m) for m in others],
-                                  [TUCKER_RANKS[m] * 4 for m in others])
+        gathered = lin_gathers(lin, sm, TUCKER_RANKS)
         print(f"[K3-TTMc] sort mode {sm} err f32={err:.3e} vs "
               f"K1-TTMc={err_k1:.3e} bf16={err_bf16:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
@@ -642,7 +720,35 @@ def main() -> int:
               f"{gathered / ms / 1e6:.1f} GB/s")
         k3t["max_abs_err"] = max(k3t["max_abs_err"], err)
         if sm == 0:  # the sort mode the linearized Tucker fit runs
-            k3t.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            add_times(k3t, ms, plain_ms, nbytes, ops_count)
+        for tm in (m for m in range(t.order) if m != sm):
+            got = ops.ttmc_lin(lin, tf, tm)
+            what = f"off-sort TTMc sort mode {sm} mode {tm}"
+            err = max_err(torch, got, ref.ttmc_lin_ref(lin, tf, tm),
+                          rtol=1e-4, atol=1e-4, what=f"{what} float32")
+            err_k1 = max_err(torch, got, y_by_mode[tm], rtol=1e-4,
+                             atol=1e-4, what=f"{what} vs K1-TTMc")
+            err_bf16 = max_err(torch, ops.ttmc_lin(lin, fb, tm),
+                               ref.ttmc_lin_ref(lin, fb, tm).bfloat16(),
+                               rtol=5e-2, atol=5e-2, what=f"{what} bfloat16")
+            ms = time_ms(torch, lambda: ops.ttmc_lin(lin, tf, tm))
+            plain_ms = time_ms(torch, lambda: ref.ttmc_lin_ref(lin, tf, tm))
+            nbytes, ops_count, b_ms, b_by = ttmc_bound(12, lin.padded_nnz, tm)
+            gathered = lin_gathers(lin, tm, TUCKER_RANKS)
+            width = got.shape[1]
+            red = atomic_runs(torch, lin.decode(tm), mttkrp_cuda.SEGMENT)
+            print(f"[K3-off-TTMc] sort mode {sm} mode {tm} W={width} err "
+                  f"f32={err:.3e} vs K1-TTMc={err_k1:.3e} bf16={err_bf16:.3e}"
+                  f" ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f}"
+                  f" ({b_by}, {nbytes / 1e6:.1f} MB, {ops_count / 1e9:.2f} "
+                  f"GFLOP); L2 gathers {gathered / 1e9:.3f} GB at "
+                  f"{gathered / ms / 1e6:.1f} GB/s; atomics {red} runs x "
+                  f"{width} x 4 B = {red * width * 4 / 1e9:.3f} GB at "
+                  f"{red * width * 4 / ms / 1e6:.1f} GB/s; output "
+                  f"{t.dims[tm] * width * 4 / 1e6:.1f} MB")
+            k3toff["max_abs_err"] = max(k3toff["max_abs_err"], err)
+            if sm == 0:  # the modes the linearized Tucker fit runs
+                add_times(k3toff, ms, plain_ms, nbytes, ops_count)
     del lins
     y2 = y_by_mode[2]
     svd_ms = time_ms(torch, lambda: torch.linalg.svd(y2, full_matrices=False),
@@ -724,9 +830,11 @@ def main() -> int:
 
     # --- 11. the linearized Tucker path ---------------------------------------
     tdec_lin, tlin_times, tlin_launches = tucker_fit(
-        "linearized_cuda", dict(none, ttmc_lin=TUCKER_NITERS))
+        "linearized_cuda", dict(none, ttmc_lin=TUCKER_NITERS,
+                                ttmc_off_sort=(t.order - 1) * TUCKER_NITERS))
     check_tucker(tdec_lin, "impl=linearized_cuda")
-    launches["ttmc_lin"] = tlin_launches["ttmc_lin"]
+    for name in ("ttmc_lin", "ttmc_off_sort"):
+        launches[name] = tlin_launches[name]
     print("[tucker] routine s (cuda | linearized_cuda | segment): "
           + " ".join(f"{k}={tcsf_times[k]:.4f}|{tlin_times[k]:.4f}|"
                      f"{tseg_times[k]:.4f}"
@@ -734,55 +842,36 @@ def main() -> int:
 
     # --- 12. results --------------------------------------------------------
     kernels = [
-        {"name": "mttkrp", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/segmented.cuh",
-         "replaces": "src/repro/kernels/mttkrp_pallas.py:49",
-         "launches": launches["mttkrp"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"],
-         "bound_by": ("bytes" if k1["bytes_ms"] >= k1["ops_ms"]
-                      else "operations"),
-         "library_ms": None},
-        {"name": "syrk", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/syrk.cu",
-         "replaces": "src/repro/kernels/syrk_pallas.py:24",
-         "launches": launches["syrk"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"],
-         "bound_by": ("bytes" if k2["bytes_ms"] >= k2["ops_ms"]
-                      else "operations"),
-         "library_ms": k2["library_ms"]},
-        {"name": "mttkrp_lin", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/linearized.cu",
-         "replaces": "src/repro/kernels/linearized_pallas.py:34",
-         "launches": launches["mttkrp_lin"],
-         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
-         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": None},
-        {"name": "ttmc", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/segmented.cuh",
-         "replaces": "src/repro/kernels/mttkrp_pallas.py:49",
-         "caller": "src/repro/kernels/ops.py:77",
-         "launches": launches["ttmc"], "max_abs_err": k1t["max_abs_err"],
-         "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
-         "bound_ms": k1t["bound_ms"],
-         "bound_by": ("bytes" if k1t["bytes_ms"] >= k1t["ops_ms"]
-                      else "operations"),
-         "library_ms": None},
-        {"name": "ttmc_lin", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/segmented.cuh",
-         "replaces": "src/repro/kernels/linearized_pallas.py:34",
-         "caller": "src/repro/kernels/ops.py:158",
-         "launches": launches["ttmc_lin"],
-         "max_abs_err": k3t["max_abs_err"], "ms": k3t["ms"],
-         "plain_ms": k3t["plain_ms"], "bound_ms": k3t["bound_ms"],
-         "bound_by": k3t["bound_by"], "library_ms": None},
+        kernel_entry("mttkrp", "segmented.cuh",
+                     "src/repro/kernels/mttkrp_pallas.py:49",
+                     launches["mttkrp"], k1),
+        kernel_entry("syrk", "syrk.cu", "src/repro/kernels/syrk_pallas.py:24",
+                     launches["syrk"], k2),
+        kernel_entry("mttkrp_lin", "segmented.cuh",
+                     "src/repro/kernels/linearized_pallas.py:34",
+                     launches["mttkrp_lin"], k3),
+        kernel_entry("ttmc", "segmented.cuh",
+                     "src/repro/kernels/mttkrp_pallas.py:49",
+                     launches["ttmc"], k1t,
+                     caller="src/repro/kernels/ops.py:77"),
+        kernel_entry("ttmc_lin", "segmented.cuh",
+                     "src/repro/kernels/linearized_pallas.py:34",
+                     launches["ttmc_lin"], k3t,
+                     caller="src/repro/kernels/ops.py:158"),
+        kernel_entry("mttkrp_off_sort", "segmented.cuh",
+                     "src/repro/core/mttkrp.py:239",
+                     launches["mttkrp_off_sort"], k3off),
+        kernel_entry("ttmc_off_sort", "segmented.cuh",
+                     "src/repro/core/ttmc.py:157",
+                     launches["ttmc_off_sort"], k3toff),
     ]
     print(f"[note] build {build_s:.3f} s; times: one call for each mode the "
-          "main path runs, summed (mttkrp_lin and ttmc_lin: sort mode 0); "
-          "launches: mttkrp in fit(impl='cuda'), mttkrp_lin in "
-          "fit(impl='linearized_cuda'), syrk in gram(impl='cuda'), ttmc "
-          "and ttmc_lin in the Tucker fits of the same impls")
+          "main path runs, summed (mttkrp_lin and ttmc_lin: sort mode 0; "
+          "mttkrp_off_sort and ttmc_off_sort: modes 1 and 2 of sort mode "
+          "0); launches: mttkrp in fit(impl='cuda'), mttkrp_lin and "
+          "mttkrp_off_sort in fit(impl='linearized_cuda'), syrk in "
+          "gram(impl='cuda'), ttmc, ttmc_lin and ttmc_off_sort in the Tucker "
+          "fits of the same impls")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

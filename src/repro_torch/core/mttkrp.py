@@ -21,9 +21,11 @@ impl                what it reproduces
                     every mode.  The sort mode runs the no-lock segment
                     reduction; other modes decode and ``index_add_``.
 ``linearized_cuda`` the linearized workspace on the hand-written kernel
-                    (kernels/csrc/linearized.cu, decode inside the kernel)
-                    on its sort mode, in the ``linearized_pallas`` slot;
-                    the other modes decode and ``index_add_`` as above.
+                    (kernels/csrc/linearized.cu, decode inside the kernel),
+                    in the ``linearized_pallas`` slot: on a CUDA tensor
+                    every mode, the sort mode storing its rows and the
+                    others adding them with atomics; on a CPU tensor the
+                    sort mode's plain version, the others as above.
 ``dense``           dense einsum oracle (tests only).
 ==================  =========================================================
 
@@ -206,9 +208,10 @@ def mttkrp_linearized(ws, factors: Sequence[Tensor], mode: int) -> Tensor:
 
 def mttkrp_linearized_cuda(ws, factors: Sequence[Tensor],
                            mode: int) -> Tensor:
-    """The linearized workspace on the hand-written kernel on its sort mode
-    (its plain version on a CPU tensor), the plain decode and scatter on
-    the other modes: ``kernels.ops.mttkrp_lin``."""
+    """The linearized workspace on the hand-written kernel, every mode on a
+    CUDA tensor (on a CPU tensor the sort mode's plain version and the
+    plain decode and scatter on the other modes): ``kernels.ops.
+    mttkrp_lin``."""
     lin = _require_lin(ws)
     from repro_torch.kernels import ops as kops  # kernels import core
 

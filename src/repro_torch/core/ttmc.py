@@ -21,9 +21,10 @@ impl                what it runs
                     plain version on a CPU tensor.
 ``linearized``      the one linearized workspace: segment reduction on the
                     sort mode, decode + ``index_add_`` on the others.
-``linearized_cuda`` K3 at Kronecker width on the sort mode (kernels/csrc/
-                    linearized.cu), in the ``linearized_pallas`` slot; the
-                    other modes as ``linearized``.
+``linearized_cuda`` K3 at Kronecker width (kernels/csrc/linearized.cu), in
+                    the ``linearized_pallas`` slot: every mode on a CUDA
+                    tensor; on a CPU tensor the sort mode's plain version
+                    and the other modes as ``linearized``.
 ``dense``           dense einsum oracle (tests only).
 ==================  =========================================================
 
@@ -156,9 +157,9 @@ def ttmc_linearized(ws, factors: Sequence[Tensor], mode: int) -> Tensor:
 
 
 def ttmc_linearized_cuda(ws, factors: Sequence[Tensor], mode: int) -> Tensor:
-    """K3 at Kronecker width on the sort mode (its plain version on a CPU
-    tensor), :func:`ttmc_linearized` on the others: ``kernels.ops.
-    ttmc_lin``."""
+    """K3 at Kronecker width, every mode on a CUDA tensor (on a CPU tensor
+    the sort mode's plain version and :func:`ttmc_linearized` on the
+    others): ``kernels.ops.ttmc_lin``."""
     lin = _require_lin(ws)
     from repro_torch.kernels import ops as kops  # kernels import core
 

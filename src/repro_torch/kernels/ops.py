@@ -32,15 +32,19 @@ def mttkrp_lin(lin: Linearized, factors: Sequence[torch.Tensor],
     """MTTKRP for any mode from the linearized workspace: (dims[mode], R)
     in the factors' dtype.
 
-    The sort mode's stream is ordered and tile-aligned by its output row, so
-    it runs the kernel (its plain version on a CPU tensor).  The other modes
-    have no block -> tile structure; they take the plain decode and
-    ``index_add_`` of ``core.mttkrp.mttkrp_linearized`` on every device, as
-    the reference computes them outside its kernel."""
+    On a CUDA tensor every mode runs the kernel: the sort mode's stream is
+    ordered by its output row (``linearized_cuda.mttkrp``), the other
+    modes' is not (``linearized_cuda.mttkrp_off_sort``, which adds every
+    run with atomics).  On a CPU tensor the sort mode runs the kernel's
+    plain version and the other modes the plain decode and ``index_add_``
+    of ``core.mttkrp.mttkrp_linearized``, as the reference computes them
+    outside its kernel."""
+    if lin.vals.is_cuda:
+        if mode == lin.sort_mode:
+            return linearized_cuda.mttkrp(lin, factors, mode)
+        return linearized_cuda.mttkrp_off_sort(lin, factors, mode)
     if mode != lin.sort_mode:
         return mttkrp_linearized(lin, factors, mode)
-    if lin.vals.is_cuda:
-        return linearized_cuda.mttkrp(lin, factors, mode)
     dtype = factors[next(m for m in range(lin.order) if m != mode)].dtype
     return ref.mttkrp_lin_ref(lin, factors, mode).to(dtype)
 
@@ -56,14 +60,17 @@ def ttmc(csf: CSF, factors: Sequence[torch.Tensor]) -> torch.Tensor:
 def ttmc_lin(lin: Linearized, factors: Sequence[torch.Tensor],
              mode: int) -> torch.Tensor:
     """TTMc for any mode from the linearized workspace: (dims[mode], prod
-    of the other modes' ranks) in the factors' dtype.  The sort mode runs
-    the kernel (its plain version on a CPU tensor); the other modes take
-    ``core.ttmc.ttmc_linearized`` on every device, as :func:`mttkrp_lin`
-    does."""
+    of the other modes' ranks) in the factors' dtype.  On a CUDA tensor
+    every mode runs the kernel (``linearized_cuda.ttmc`` on the sort mode,
+    ``ttmc_off_sort`` on the others); on a CPU tensor the sort mode runs
+    its plain version and the others ``core.ttmc.ttmc_linearized``, as
+    :func:`mttkrp_lin` does."""
+    if lin.vals.is_cuda:
+        if mode == lin.sort_mode:
+            return linearized_cuda.ttmc(lin, factors, mode)
+        return linearized_cuda.ttmc_off_sort(lin, factors, mode)
     if mode != lin.sort_mode:
         return ttmc_linearized(lin, factors, mode)
-    if lin.vals.is_cuda:
-        return linearized_cuda.ttmc(lin, factors, mode)
     dtype = factors[next(m for m in range(lin.order) if m != mode)].dtype
     return ref.ttmc_lin_ref(lin, factors, mode).to(dtype)
 

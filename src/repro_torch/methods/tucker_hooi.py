@@ -166,8 +166,8 @@ def tucker_hooi(
     ``rank`` is a per-mode tuple of core ranks (an int broadcasts, capped
     at each mode length).  ``impl`` is the planner policy, scored against
     the TTMc registry with each mode's Kronecker width as its rank;
-    ``"cuda"`` runs K1 at Kronecker width, ``"linearized_cuda"`` K3 on the
-    workspace's sort mode.  ``generator`` (a ``torch.Generator`` on ``t``'s
+    ``"cuda"`` runs K1 at Kronecker width, ``"linearized_cuda"`` K3 on every
+    mode of the one workspace.  ``generator`` (a ``torch.Generator`` on ``t``'s
     device, or an int seed; seed 0 when None) draws the initial orthonormal
     factors unless ``state`` hands them in (``iteration=0``) or resumes a
     run.  ``timers=`` synchronises the card around each routine and adds

@@ -18,7 +18,7 @@ from repro_torch.core import (SparseTensor, build_csf, build_linearized,
 from repro_torch.core.coo import make_generator
 from repro_torch.core.linearized import field_offsets
 from repro_torch.kernels import (_build, linearized_cuda, mttkrp_cuda, ops,
-                                 ref, syrk_cuda)
+                                 ref, sass_diff, syrk_cuda)
 
 from torch_yelp_cases import YELP, hot_yelp_tensor
 
@@ -88,6 +88,29 @@ def test_build_paths_follow_sources():
         assert path.name.startswith(name + "-") and path.suffix == ".so"
         assert path == _build.lib_path(name)  # stable for unchanged sources
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+_SASS = """
+        Function : _Z16segmented_kernelI9CsfStreamIfELi2EEvT_
+        /*0000*/   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+        /*0010*/   EXIT ;                   /* 0x000000000000794d */
+        Function : _Z3fooILi1EEvv
+        /*0000*/   NOP ;                    /* 0x0000000000007918 */
+"""
+
+
+def test_sass_diff_pairs_kernels_across_a_new_template_argument():
+    """A kernel whose template gained a ``true`` argument (``Lb1E``) pairs
+    with its earlier build once the token is dropped; addresses and
+    encodings are left out of the comparison."""
+    old = sass_diff.parse_sass(_SASS)
+    new = sass_diff.parse_sass(
+        _SASS.replace("Li2EEvT_", "Li2ELb1EEvT_").replace("0x0000", "0x1111")
+        .replace("NOP", "EXIT"), drop=("Lb1E",))
+    assert old["_Z16segmented_kernelI9CsfStreamIfELi2EEvT_"] == [
+        "LDC R1, c[0x0][0x28] ;", "EXIT ;"]
+    shared, differ = sass_diff.compare(old, new)
+    assert shared == sorted(old) and differ == ["_Z3fooILi1EEvv"]
 
 
 # ---------------------------------------------------------------------------
@@ -713,3 +736,186 @@ def test_mttkrp_kernel_order_four_on_card(cuda, rank, mode):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.mttkrp_ref(csf, f), rtol=5e-4,
                                atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# K3-MTTKRP on the row-segmented body, and the off-sort kernels of the
+# linearized workspace (every run added with atomics)
+# ---------------------------------------------------------------------------
+
+def _check_mttkrp(got, want, dims, mode, rank, dtype):
+    assert got.dtype == dtype and got.shape == (dims[mode], rank)
+    tol = _tol(0.0, dtype)
+    torch.testing.assert_close(got.float(), want.to(dtype).float(), rtol=tol,
+                               atol=tol)
+
+
+# (tensor, sort mode, rank, dtype)
+CARD_MTTKRP_LIN_SEGMENT_CASES = (
+    [(kind, mode, 35, torch.float32)
+     for kind in ("hot", "hot-empty", "skew") for mode in (0, 1)]
+    + [("skew", 0, r, torch.float32) for r in (3, 64, 150)]
+    + [("hot", 1, 300, torch.float32),             # two slices of 256
+       ("hot-empty", 0, 35, torch.bfloat16), ("skew", 1, 35, torch.bfloat16)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mode,rank,dtype", CARD_MTTKRP_LIN_SEGMENT_CASES)
+def test_mttkrp_linearized_kernel_row_segments_on_card(cuda, kind, mode, rank,
+                                                       dtype):
+    """K3-MTTKRP (``LinStream`` x the Khatri-Rao map) on sort modes 0 (its
+    row field straddles the words) and 1 (the high word), against its plain
+    version and against K1-MTTKRP on the same mode's CSF."""
+    t = _segment_tensor(kind, cuda)
+    f = tuple(a.to(dtype) for a in init_factors(t.dims, rank, 46,
+                                                device=cuda))
+    lin = build_linearized(t, sort_mode=mode)
+    before = (linearized_cuda.mttkrp.launches,
+              linearized_cuda.mttkrp_off_sort.launches)
+    got = ops.mttkrp_lin(lin, f, mode)
+    k1 = ops.mttkrp(build_csf(t, mode), f)
+    torch.cuda.synchronize()
+    assert (linearized_cuda.mttkrp.launches,
+            linearized_cuda.mttkrp_off_sort.launches) == (before[0] + 1,
+                                                          before[1])
+    _check_mttkrp(got, ref.mttkrp_lin_ref(lin, f, mode), t.dims, mode, rank,
+                  dtype)
+    _check_mttkrp(got, k1, t.dims, mode, rank, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [35, 150])
+@pytest.mark.parametrize("mode", [0, 3])
+def test_mttkrp_linearized_kernel_order_four_on_card(cuda, rank, mode):
+    t = random_sparse((20, 15, 12, 10), 2000, 47, skew=1.0, device=cuda)
+    f = init_factors(t.dims, rank, 48, device=cuda)
+    lin = build_linearized(t, block=128, row_tile=64, sort_mode=mode)
+    got = ops.mttkrp_lin(lin, f, mode)
+    k1 = ops.mttkrp(build_csf(t, mode, block=128, row_tile=64), f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.mttkrp_lin_ref(lin, f, mode),
+                               rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(got, k1, rtol=5e-4, atol=5e-4)
+
+
+# (tensor, sort mode, target mode): every off-sort mode of sort modes 0 and
+# 1 (sort mode 1 puts mode 0 at bits 17..32, across the words)
+OFF_SORT_MODES = [(0, 1), (0, 2), (1, 0), (1, 2)]
+CARD_OFF_SORT_CASES = (
+    [(kind, sm, tm, torch.float32) for kind in ("hot", "hot-empty", "skew")
+     for sm, tm in OFF_SORT_MODES]
+    + [(kind, sm, tm, torch.bfloat16) for kind in ("hot-empty", "skew")
+       for sm, tm in OFF_SORT_MODES]
+)
+
+
+def _off_sort_call(kernel, lin, f, mode):
+    """The entry point on an off-sort mode, with the launches it made of the
+    sort-mode and the off-sort wrappers."""
+    if kernel == "mttkrp":
+        counted = (linearized_cuda.mttkrp, linearized_cuda.mttkrp_off_sort)
+        call, plain = ops.mttkrp_lin, ref.mttkrp_lin_ref
+    else:
+        counted = (linearized_cuda.ttmc, linearized_cuda.ttmc_off_sort)
+        call, plain = ops.ttmc_lin, ref.ttmc_lin_ref
+    before = [fn.launches for fn in counted]
+    got = call(lin, f, mode)
+    torch.cuda.synchronize()
+    made = tuple(fn.launches - b for fn, b in zip(counted, before))
+    return got, made, plain(lin, f, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mttkrp", "ttmc"])
+@pytest.mark.parametrize("kind,sort_mode,mode,dtype", CARD_OFF_SORT_CASES)
+def test_off_sort_kernels_match_plain_on_card(cuda, kind, sort_mode, mode,
+                                              dtype, kernel):
+    """The off-sort MTTKRP (R = 35) and TTMc (W = 256) on every off-sort mode
+    of sort modes 0 and 1, hot rows, all-padding blocks and skew 2.0,
+    against the plain version and against K1 on that mode's CSF."""
+    t = _segment_tensor(kind, cuda)
+    if kernel == "mttkrp":
+        f = tuple(a.to(dtype) for a in init_factors(t.dims, 35, 49,
+                                                    device=cuda))
+    else:
+        f = _ttmc_factors(t.dims, (16, 16, 16), 49, cuda, dtype)
+    lin = build_linearized(t, sort_mode=sort_mode)
+    got, made, want = _off_sort_call(kernel, lin, f, mode)
+    assert made == (0, 1)
+    csf = build_csf(t, mode)
+    k1 = ops.mttkrp(csf, f) if kernel == "mttkrp" else ops.ttmc(csf, f)
+    torch.cuda.synchronize()
+    if kernel == "mttkrp":
+        _check_mttkrp(got, want, t.dims, mode, 35, dtype)
+        _check_mttkrp(got, k1, t.dims, mode, 35, dtype)
+    else:
+        _check_ttmc(got, want, t.dims, mode, (16, 16, 16), dtype, 0.0)
+        _check_ttmc(got, k1, t.dims, mode, (16, 16, 16), dtype, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,ranks", [
+    ("mttkrp", (300, 300, 300)),     # two slices of 256 columns
+    ("mttkrp", (3, 3, 3)),
+    ("ttmc", (24, 24, 24)),          # W = 576 past 32 x 16 columns
+    ("ttmc", (5, 7, 3)),             # an odd last rank, one column a lane
+    ("ttmc", (4, 4, 12)),            # 2 columns a lane
+])
+@pytest.mark.parametrize("sort_mode,mode", OFF_SORT_MODES)
+def test_off_sort_kernels_wide_and_narrow_on_card(cuda, kernel, ranks,
+                                                  sort_mode, mode):
+    t = _segment_tensor("hot-empty", cuda)
+    if kernel == "mttkrp":
+        f = init_factors(t.dims, ranks[0], 50, device=cuda)
+    else:
+        f = _ttmc_factors(t.dims, ranks, 50, cuda)
+    lin = build_linearized(t, sort_mode=sort_mode)
+    got, made, want = _off_sort_call(kernel, lin, f, mode)
+    assert made == (0, 1)
+    if kernel == "mttkrp":
+        _check_mttkrp(got, want, t.dims, mode, ranks[0], torch.float32)
+    else:
+        _check_ttmc(got, want, t.dims, mode, ranks, torch.float32, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,ranks", [("mttkrp", (35,) * 4),
+                                          ("mttkrp", (150,) * 4),
+                                          ("ttmc", (2, 5, 7, 3)),
+                                          ("ttmc", (8, 8, 8, 8))])
+@pytest.mark.parametrize("sort_mode,mode", [(0, 1), (0, 3), (2, 0), (3, 2)])
+def test_off_sort_kernels_order_four_on_card(cuda, kernel, ranks, sort_mode,
+                                             mode):
+    """Order 4 runs the kernels compiled for a run-time number of modes."""
+    t = random_sparse((20, 15, 12, 10), 2000, 51, skew=1.0, device=cuda)
+    if kernel == "mttkrp":
+        f = init_factors(t.dims, ranks[0], 52, device=cuda)
+    else:
+        f = _ttmc_factors(t.dims, ranks, 52, cuda)
+    lin = build_linearized(t, block=128, row_tile=64, sort_mode=sort_mode)
+    got, made, want = _off_sort_call(kernel, lin, f, mode)
+    assert made == (0, 1)
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mttkrp", "ttmc"])
+@pytest.mark.parametrize("sort_mode,mode", OFF_SORT_MODES)
+def test_off_sort_kernels_repeat_within_reassociation_on_card(
+        cuda, kernel, sort_mode, mode):
+    """The atomics land in another order each call, on hot rows that many
+    warps share: two calls agree within float reassociation (1e-5
+    relative)."""
+    t = _segment_tensor("skew", cuda)
+    if kernel == "mttkrp":
+        f = init_factors(t.dims, 35, 53, device=cuda)
+        call = linearized_cuda.mttkrp_off_sort
+    else:
+        f = _ttmc_factors(t.dims, (16, 16, 16), 53, cuda)
+        call = linearized_cuda.ttmc_off_sort
+    lin = build_linearized(t, sort_mode=sort_mode)
+    first = call(lin, f, mode)
+    second = call(lin, f, mode)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first, second, rtol=1e-5, atol=0.0)
