@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CP-ALS and Tucker paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint and
+streaming paths on one CUDA card and check them.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -86,7 +86,29 @@ Phases; any failure raises and exits non-zero:
    ``impl="linearized_cuda"``: K3-TTMc launches 8 times (sort mode 0) and
    the off-sort TTMc 16 (modes 1 and 2), nothing else; held to
    ``segment`` as in phase 10.
-12. One JSON line of kernel numbers, then, as the last line,
+12. The ingested path, in a temporary directory: ``write_tnsb`` of the
+   yelp tensor and ``read_tnsb`` back (equal, bit for bit); a cold
+   ``ingest(path, reorder="degree_sort", cache=...)`` (3 CSF builds and 1
+   linearized build) and a warm one, which must be a cache hit and build
+   nothing (the builds are counted at ``core.csf.build_csf`` and
+   ``core.linearized.build_linearized``); ``ing.plan("auto", rank=35,
+   calibrate=True)`` twice, the second from the cache's autotune store (3
+   hits, no timing run).  Then ``fit(ing, 35, method="cp_nn_hals",
+   niters=20)`` with ``impl="segment"``, ``"cuda"`` (60 K1 launches) and
+   ``"linearized_cuda"`` (20 K3 + 40 off-sort), from one nonnegative
+   state, the kernel fits held to ``segment``'s at the CP limits and every
+   factor >= 0; ``fit(ing, 35, impl="cuda", niters=20)`` on the warm handle
+   (no Sort), its factors back in the tensor's labels and held to phase
+   5's ``segment`` fit; and a ``CheckpointManager`` resume: 10 iterations
+   saved at each step, a fresh manager restores the newest onto the card,
+   and a new fit resumes it to 20, held to the uninterrupted 20 at the CP
+   limits.  Each step's seconds print beside the card's name and power
+   limit.
+13. Streaming: ``fit(path, 35, method="cp_als_streaming", niters=5)`` from
+   the ``.tnsb`` (chunks of 2^20 entries moved to the card one at a time,
+   ``decay=1``) against the batch ``segment`` fit from the same state:
+   fits within 1e-3.
+14. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -108,6 +130,7 @@ RANK = 35
 NITERS = 20
 TUCKER_RANKS = (16, 16, 16)
 TUCKER_NITERS = 8
+STREAM_NITERS = 5
 # NVIDIA H100 SXM data sheet (dense, no sparsity) at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -555,18 +578,24 @@ def main() -> int:
                                      f"{tuple(a.shape)} or non-finite values")
         return dec, dict(timers, wall=wall), counts
 
-    def check_against_segment(dec, what: str, factors_too: bool = True):
-        fit_got, fit_seg = float(dec.fit), float(dec_seg.fit)
+    def check_against_segment(dec, what: str, factors_too: bool = True,
+                              want=None, tag: str = "fit",
+                              against: str = "segment"):
+        """Hold ``dec`` to a plain ``segment`` fit (phase 5's unless
+        ``want`` is given; ``against`` names it) at the CP limits."""
+        want = dec_seg if want is None else want
+        fit_got, fit_seg = float(dec.fit), float(want.fit)
         fit_diff = abs(fit_got - fit_seg)
-        lmbda_rel, factor_rel = rel_diffs(torch, dec, dec_seg)
-        print(f"[fit] {what} vs segment fit={fit_seg:.7f} "
+        lmbda_rel, factor_rel = rel_diffs(torch, dec, want)
+        print(f"[{tag}] {what} vs {against} fit={fit_seg:.7f} "
               f"|diff|={fit_diff:.3e} lambda rel={lmbda_rel:.3e} factor rel="
               + " ".join(f"{r:.3e}" for r in factor_rel))
         if not math.isfinite(fit_got) or fit_diff > 1e-5:
-            raise AssertionError(f"{what}: fit {fit_got} vs segment {fit_seg}")
+            raise AssertionError(f"{what}: fit {fit_got} vs {against} "
+                                 f"{fit_seg}")
         if factors_too and (lmbda_rel > 3e-2 or max(factor_rel) > 3e-2):
             raise AssertionError(f"{what}: lambda or a factor differs from "
-                                 "segment's by more than a relative 3e-2")
+                                 f"{against}'s by more than a relative 3e-2")
 
     dec, csf_times, launches = timed_fit(
         "cuda", dict(none, mttkrp=t.order * NITERS))
@@ -840,7 +869,180 @@ def main() -> int:
                      f"{tseg_times[k]:.4f}"
                      for k in ("sort", "ttmc", "svd", "fit", "wall")))
 
-    # --- 12. results --------------------------------------------------------
+    # --- 12. the ingested path ----------------------------------------------
+    import repro_torch.core.csf as csf_mod
+    import repro_torch.core.linearized as lin_mod
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ingest import ingest, read_tnsb, write_tnsb
+
+    builds = {"build_csf": 0, "build_linearized": 0}
+    real_builds = {"build_csf": csf_mod.build_csf,
+                   "build_linearized": lin_mod.build_linearized}
+
+    def counted_build(name):
+        def build(*a, **k):
+            builds[name] += 1
+            return real_builds[name](*a, **k)
+        return build
+
+    def step(what: str, seconds: float) -> None:
+        print(f"[ingest] {what} s={seconds:.4f} on {card}")
+
+    def sync_time(fn):
+        """``(fn(), seconds)``, the card synchronised before and after."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="ingest-") as work:
+        work = Path(work)
+        path, cache = work / "yelp.tnsb", work / "cache"
+        _, write_s = sync_time(lambda: write_tnsb(path, t))
+        step(f"write_tnsb ({path.stat().st_size / 1e6:.1f} MB)", write_s)
+        back, read_s = sync_time(lambda: read_tnsb(path, device=dev))
+        step("read_tnsb", read_s)
+        if (back.dims != t.dims or back.nnz != t.nnz
+                or not torch.equal(back.inds, t.inds[: t.nnz])
+                or not torch.equal(back.vals, t.vals[: t.nnz])):
+            raise AssertionError("read_tnsb did not give back the tensor")
+        del back
+
+        csf_mod.build_csf = counted_build("build_csf")
+        lin_mod.build_linearized = counted_build("build_linearized")
+        try:
+            cold, cold_s = sync_time(lambda: ingest(
+                path, reorder="degree_sort", cache=cache, device=dev))
+            cold_builds = dict(builds)
+            step(f"cold ingest (degree_sort, linearized mode "
+                 f"{cold.relabeling.linearized_mode}; builds {cold_builds})",
+                 cold_s)
+            del cold
+            builds.update(dict.fromkeys(builds, 0))
+            ing, warm_s = sync_time(lambda: ingest(
+                path, reorder="degree_sort", cache=cache, device=dev))
+            step(f"warm ingest (cache_hit={ing.cache_hit}, builds "
+                 f"{builds})", warm_s)
+        finally:
+            csf_mod.build_csf = real_builds["build_csf"]
+            lin_mod.build_linearized = real_builds["build_linearized"]
+        if cold_builds != {"build_csf": t.order, "build_linearized": 1}:
+            raise AssertionError(f"cold ingest builds {cold_builds}")
+        if not ing.cache_hit or any(builds.values()):
+            raise AssertionError(f"warm ingest: cache_hit={ing.cache_hit}, "
+                                 f"builds {builds}")
+
+        store = ing.cache.autotune
+        iplan, plan1_s = sync_time(lambda: ing.plan("auto", rank=RANK,
+                                                    calibrate=True))
+        step(f"first calibrated plan {iplan.summary()} sources "
+             f"{[p.source for p in iplan.modes]}", plan1_s)
+        hits, misses = store.hits, store.misses
+        iplan2, plan2_s = sync_time(lambda: ing.plan("auto", rank=RANK,
+                                                     calibrate=True))
+        step(f"warm plan {iplan2.summary()} hits={store.hits - hits} "
+             f"misses={store.misses - misses}", plan2_s)
+        if (any(p.source != "measured-cached" for p in iplan2.modes)
+                or iplan2.impls != iplan.impls
+                or store.hits - hits != t.order or store.misses != misses):
+            raise AssertionError("the warm plan made a timing run")
+
+        # HALS on the cached workspaces, from one nonnegative state
+        hstate = make_state(ing.relabeling.apply_factors(init), {}, zero,
+                            zero, 0)
+
+        def hals_fit(impl: str, want_launches: dict[str, int]):
+            timers: dict[str, float] = {}
+            zero_counts()
+            hdec, wall = sync_time(lambda: fit(
+                ing, RANK, method="cp_nn_hals", impl=impl, niters=NITERS,
+                timers=timers, state=hstate))
+            counts = read_counts()
+            print(f"[hals] impl={impl} fit={float(hdec.fit):.7f} "
+                  f"wall_s={wall:.4f} launches={counts} "
+                  + " ".join(f"{k}_s={timers.get(k, 0.0):.4f}"
+                             for k in ROUTINES_FUSED) + f" on {card}")
+            if counts != want_launches:
+                raise AssertionError(f"hals impl={impl} launches {counts}, "
+                                     f"expected {want_launches}")
+            for m, a in enumerate(hdec.factors):
+                if (tuple(a.shape) != (t.dims[m], RANK)
+                        or not torch.isfinite(a).all() or a.min() < 0):
+                    raise AssertionError(f"hals impl={impl} factor {m}: "
+                                         "shape, non-finite or negative")
+            return hdec
+
+        hseg = hals_fit("segment", dict(none))
+        check_against_segment(
+            hals_fit("cuda", dict(none, mttkrp=t.order * NITERS)),
+            "hals impl=cuda", want=hseg, tag="hals")
+        check_against_segment(
+            hals_fit("linearized_cuda",
+                     dict(none, mttkrp_lin=NITERS,
+                          mttkrp_off_sort=(t.order - 1) * NITERS)),
+            "hals impl=linearized_cuda", want=hseg, tag="hals")
+
+        # CP-ALS on the warm handle: no Sort; factors back in the tensor's
+        # labels, held to phase 5's segment fit of the tensor itself
+        wstate = CPALSState(ing.relabeling.apply_factors(init),
+                            state.lmbda, zero, zero, state.iteration)
+        timers = {}
+        zero_counts()
+        wdec, wall = sync_time(lambda: fit(
+            ing, RANK, impl="cuda", niters=NITERS, timers=timers,
+            fused_epilogue=True, state=wstate))
+        print(f"[ingest] warm cuda fit={float(wdec.fit):.7f} wall_s="
+              f"{wall:.4f} launches={read_counts()} "
+              + " ".join(f"{k}_s={timers.get(k, 0.0):.4f}"
+                         for k in ROUTINES_FUSED)
+              + f" (phase 5's sort_s={csf_times['sort']:.4f}) on {card}")
+        check_against_segment(wdec, "warm handle impl=cuda", tag="ingest")
+
+        # checkpoint at every iteration of a 10-iteration run, then a fresh
+        # manager restores the newest and a new fit resumes it to 20
+        ckpt = CheckpointManager(work / "ckpt", keep=2)
+        (_, ck_s) = sync_time(lambda: fit(
+            ing, RANK, impl="cuda", niters=NITERS // 2, state=wstate,
+            checkpoint_cb=lambda s: ckpt.save(int(s.iteration), s)))
+        ckpt.wait()
+        like = make_state(wstate.factors, {"lmbda": wstate.lmbda}, zero,
+                          zero, 0)
+        restored, extra = CheckpointManager(work / "ckpt").restore(like)
+        zero_counts()
+        rdec, resume_s = sync_time(lambda: fit(
+            ing, RANK, impl="cuda", niters=NITERS, state=restored))
+        step(f"checkpointed {NITERS // 2} iterations ({ck_s:.4f} s), "
+             f"restored step {extra['step']} onto "
+             f"{restored.factors[0].device}, resumed to {NITERS} "
+             f"(launches {read_counts()['mttkrp']})", resume_s)
+        if (extra["step"] != NITERS // 2
+                or restored.factors[0].device.type != dev.type):
+            raise AssertionError("the checkpoint did not restore onto the "
+                                 "card at the last step")
+        check_against_segment(rdec, "resumed", want=wdec, tag="ingest",
+                              against="uninterrupted")
+
+        # --- 13. streaming: the .tnsb one chunk at a time ------------------
+        sstate = make_state(init, {"lmbda": state.lmbda}, zero, zero, 0)
+        zero_counts()
+        sdec, stream_s = sync_time(lambda: fit(
+            path, RANK, method="cp_als_streaming", niters=STREAM_NITERS,
+            state=sstate, device=dev))
+        bdec = fit(ing, RANK, impl="segment", niters=STREAM_NITERS,
+                   state=wstate)
+        diff = abs(float(sdec.fit) - float(bdec.fit))
+        print(f"[stream] {STREAM_NITERS} iterations, "
+              f"{-(-t.nnz // (1 << 20))} chunks of 2^20: fit="
+              f"{float(sdec.fit):.7f} batch segment fit="
+              f"{float(bdec.fit):.7f} |diff|={diff:.3e} wall_s="
+              f"{stream_s:.4f} launches={read_counts()} on {card}")
+        if not math.isfinite(float(sdec.fit)) or diff > 1e-3:
+            raise AssertionError(f"streamed fit {float(sdec.fit)} vs batch "
+                                 f"{float(bdec.fit)}")
+        del ing, hseg, wdec, rdec, sdec, bdec
+
+    # --- 14. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",

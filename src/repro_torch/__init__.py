@@ -8,14 +8,18 @@
                PyTorch versions, and the nvcc build
     plan/      per-mode planner on predicted or measured costs, and the
                autotune store
-    ingest/    the tensor content key (the rest of ingest is not ported)
-    methods/   the method registry and ``fit`` (CP-ALS, Tucker HOOI)
+    ingest/    .tns/.tnsb readers, relabelings, the content-addressed
+               ingest cache and the ``Ingested`` handle
+    methods/   the method registry and ``fit`` (CP-ALS, nonnegative CP by
+               HALS, Tucker HOOI, streaming CP-ALS)
+    checkpoint/ keep-k, async checkpoints of a method's state
     convert.py numpy bridges for comparing with the JAX package
 
 Entry points run on the CUDA card unless given ``device="cpu"`` (or a CPU
 tensor).  The package imports torch and numpy, never JAX or ``repro``.
 """
-from . import core, ingest, kernels, methods, plan
+from . import checkpoint, core, ingest, kernels, methods, plan
 from .methods import fit
 
-__all__ = ["core", "ingest", "kernels", "methods", "plan", "fit"]
+__all__ = ["checkpoint", "core", "ingest", "kernels", "methods", "plan",
+           "fit"]

@@ -17,6 +17,7 @@ from repro_torch.core.coo import DeviceLike, SparseTensor, resolve_device
 from repro_torch.core.cpals import CPALSState, CPDecomp
 from repro_torch.core.csf import CSF
 from repro_torch.core.linearized import Linearized
+from repro_torch.ingest.relabel import Relabeling
 from repro_torch.methods.registry import DecompState, make_state
 from repro_torch.methods.tucker_hooi import TuckerDecomp
 
@@ -101,3 +102,24 @@ def tucker_decomp_to_numpy(decomp: TuckerDecomp):
     return (decomp.core.detach().cpu().numpy(),
             [a.detach().cpu().numpy() for a in decomp.factors],
             float(decomp.fit))
+
+
+def relabeling_from_numpy(new_of_old, old_of_new, dims_old: Sequence[int],
+                          dims_new: Sequence[int], entry_perm=None,
+                          linearized_mode=None,
+                          device: DeviceLike = None) -> Relabeling:
+    """A relabeling from its per-mode maps (and entry permutation) as numpy
+    arrays, each held as int32 on ``device``."""
+    dev = resolve_device(device)
+
+    def ids(a):
+        return torch.as_tensor(np.array(a, dtype=np.int32), device=dev)
+
+    return Relabeling(
+        new_of_old=tuple(ids(a) for a in new_of_old),
+        old_of_new=tuple(ids(a) for a in old_of_new),
+        dims_old=tuple(int(d) for d in dims_old),
+        dims_new=tuple(int(d) for d in dims_new),
+        entry_perm=None if entry_perm is None else ids(entry_perm),
+        linearized_mode=(None if linearized_mode is None
+                         else int(linearized_mode)))

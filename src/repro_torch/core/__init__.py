@@ -1,7 +1,8 @@
 """repro_torch.core: sparse CP-ALS (SPLATT) and the Tucker TTMc in PyTorch,
 the counterpart of ``repro.core``."""
 from .coo import (PAPER_DATASETS, SparseTensor, dedupe, from_factors,
-                  paper_dataset, random_sparse, resolve_device)
+                  paper_dataset, random_sparse, read_tns, resolve_device,
+                  write_tns)
 from .csf import (CSF, build_all_modes, build_csf, build_csf_loop_reference)
 from .linearized import Linearized, build_linearized
 from .mttkrp import (REGISTRY, ImplSpec, available_impls, get_impl,
@@ -21,7 +22,8 @@ from .cpals import (CPALSState, CPDecomp, build_workspace, init_factors,
 
 __all__ = [
     "PAPER_DATASETS", "SparseTensor", "dedupe", "from_factors",
-    "paper_dataset", "random_sparse", "resolve_device",
+    "paper_dataset", "random_sparse", "read_tns", "resolve_device",
+    "write_tns",
     "CSF", "build_all_modes", "build_csf", "build_csf_loop_reference",
     "Linearized", "build_linearized",
     "REGISTRY", "ImplSpec", "available_impls", "get_impl", "mttkrp",

@@ -211,6 +211,53 @@ def paper_dataset(name: str, gen: GeneratorLike, *, scale: float = 1.0,
     return random_sparse(dims, nnz, gen, skew=skew, device=device)
 
 
+# ---------------------------------------------------------------------------
+# FROSTT .tns IO: thin wrappers over the streaming reader and writer in
+# repro_torch.ingest.reader, imported lazily to keep the coo -> ingest
+# dependency one-way at import time.
+# ---------------------------------------------------------------------------
+
+_warned_legacy_io = False
+
+
+def _warn_legacy_io() -> None:
+    global _warned_legacy_io
+    if not _warned_legacy_io:
+        import warnings
+
+        warnings.warn(
+            "repro_torch.core.read_tns/write_tns are legacy re-exports; new "
+            "code should use repro_torch.ingest (reader / ingest())",
+            DeprecationWarning, stacklevel=3)
+        _warned_legacy_io = True
+
+
+def read_tns(path: str, *, dtype=np.float32, dims=None,
+             duplicates: str = "sum",
+             device: DeviceLike = None) -> SparseTensor:
+    """Read FROSTT text (1-indexed ``i j k val`` lines) onto ``device``.
+    See :func:`repro_torch.ingest.reader.read_tns`: pass ``dims=`` to keep
+    trailing empty slices.
+
+    .. deprecated:: use ``repro_torch.ingest``; warns once per process."""
+    from repro_torch.ingest import reader
+
+    _warn_legacy_io()
+    return reader.read_tns(path, dtype=dtype, dims=dims,
+                           duplicates=duplicates, device=device)
+
+
+def write_tns(path: str, t: SparseTensor) -> None:
+    """Write FROSTT text with round-trip-exact formatting
+    (:func:`repro_torch.ingest.reader.write_tns`).
+
+    .. deprecated:: use ``repro_torch.ingest``; warns once per process."""
+    from repro_torch.ingest import reader
+
+    _warn_legacy_io()
+    reader.write_tns(path, t)
+
+
 __all__ = ["SparseTensor", "random_sparse", "dedupe", "from_factors",
            "PAPER_DATASETS", "paper_dataset", "resolve_device",
-           "make_generator"]
+           "make_generator", "read_tns", "write_tns"]

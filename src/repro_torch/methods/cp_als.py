@@ -8,6 +8,7 @@ given.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable
 
 import torch
@@ -18,11 +19,13 @@ from repro_torch.core.cpals import (CPALSState, CPDecomp, _iteration,
                                     build_workspace, init_factors,
                                     resolve_plan)
 from repro_torch.core.gram import gram
+from repro_torch.ingest.api import Ingested
 
 from .iteration import IterationRecorder
 from .registry import DecompState, MethodSpec, register_method
 
-__all__ = ["cp_als", "cpals_state_to_decomp", "resolve_ingested"]
+__all__ = ["cp_als", "cpals_state_to_decomp", "plan_and_build",
+           "resolve_ingested"]
 
 
 @contextlib.contextmanager
@@ -56,14 +59,41 @@ def cpals_state_to_decomp(state: CPALSState) -> DecompState:
 
 
 def resolve_ingested(t, name: str, *, block, row_tile):
-    """Driver preamble: ``(None, tensor, block, row_tile)`` with the tile
-    defaults filled in.  Ingested handles are not ported yet."""
+    """Driver preamble: unwrap an ``Ingested`` handle into
+    ``(ingested_or_None, tensor, block, row_tile)`` with the tile defaults
+    filled in.  The ingest-time tile geometry is authoritative: an explicit
+    request that conflicts with it raises."""
+    ing = None
     if not isinstance(t, SparseTensor):
-        raise NotImplementedError(
-            f"{name} takes a repro_torch SparseTensor; ingested handles "
-            f"are not ported yet (got {type(t).__name__})")
-    return None, t, (block if block is not None else 512), (
+        if not isinstance(t, Ingested):
+            raise TypeError(
+                f"{name} takes a SparseTensor or repro_torch.ingest."
+                f"Ingested, got {type(t).__name__}")
+        ing = t
+        t = ing.tensor
+        for pname, asked, have in (("block", block, ing.block),
+                                   ("row_tile", row_tile, ing.row_tile)):
+            if asked is not None and asked != have:
+                raise ValueError(
+                    f"{name} was asked for {pname}={asked} but this tensor "
+                    f"was ingested with {pname}={have}; re-ingest with "
+                    "tile=(block, row_tile) instead")
+        block, row_tile = ing.block, ing.row_tile
+    return ing, t, (block if block is not None else 512), (
         row_tile if row_tile is not None else 128)
+
+
+def plan_and_build(ing, t, impl: str, plan, *, rank, block: int,
+                   row_tile: int):
+    """The paper's Sort stage for the CP methods: ``(plan, workspaces)``.
+    An ingested handle plans with its ingest-time stats and serves its
+    cached workspaces; a tensor is planned and sorted here."""
+    if ing is not None:
+        p = plan if plan is not None else ing.plan(impl, rank=rank)
+        return p, ing.workspace(p)
+    p = resolve_plan(t, impl, plan, rank=rank, block=block,
+                     row_tile=row_tile)
+    return p, build_workspace(t, p)
 
 
 def cp_als(
@@ -101,22 +131,21 @@ def cp_als(
     state's, else NaN).  ``monitor`` receives each iteration's wall time.
     The Gram matrices are ``A.T @ A``, as in the reference driver, with
     TF32 off for the fit and the caller's setting restored after it.
+
+    ``t`` may be an :class:`~repro_torch.ingest.Ingested` handle: the plan
+    then reuses the stats measured at ingest, the workspaces come from its
+    cache when warm (no Sort), and the factors come back in the tensor's
+    original labels (``state``/``checkpoint_cb`` act in the relabeled
+    space).
     """
     if not with_fit and tol > 0.0:
         raise ValueError("tol > 0 needs the fit; drop with_fit=False")
     state = _as_cpals_state(state)
-    _, t, block, row_tile = resolve_ingested(t, "cp_als", block=block,
-                                             row_tile=row_tile)
-
-    def _plan_and_build():
-        p = resolve_plan(t, impl, plan, rank=rank, block=block,
-                         row_tile=row_tile)
-        return p, build_workspace(t, p)
-
-    if timers is not None:
-        plan, ws = _timed(timers, "sort", _plan_and_build)
-    else:
-        plan, ws = _plan_and_build()
+    ing, t, block, row_tile = resolve_ingested(t, "cp_als", block=block,
+                                               row_tile=row_tile)
+    build = functools.partial(plan_and_build, ing, t, impl, plan,
+                              rank=rank, block=block, row_tile=row_tile)
+    plan, ws = build() if timers is None else _timed(timers, "sort", build)
     impls = plan.impls
 
     dtype, dev = t.vals.dtype, t.device
@@ -166,7 +195,8 @@ def cp_als(
                 break
             fit_prev = fit
 
-    return CPDecomp(factors=tuple(factors), lmbda=lmbda, fit=fit)
+    decomp = CPDecomp(factors=tuple(factors), lmbda=lmbda, fit=fit)
+    return decomp if ing is None else ing.restore(decomp)
 
 
 register_method(MethodSpec(

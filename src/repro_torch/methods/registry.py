@@ -3,7 +3,10 @@
 Counterpart of ``repro.methods.registry``.  Each method is a
 :class:`MethodSpec` that declares its family, the sparse kernel it plans
 against and the execution contexts it supports, so drivers check
-capability instead of hardcoding names.  Only ``cp_als`` is ported so far.
+capability instead of hardcoding names.  The four methods (``cp_als``,
+``cp_nn_hals``, ``tucker_hooi``, ``cp_als_streaming``) are registered; the
+distributed capability (``supports_dist``) is not ported, so no method
+declares it.
 """
 from __future__ import annotations
 

@@ -172,15 +172,22 @@ def tucker_hooi(
     factors unless ``state`` hands them in (``iteration=0``) or resumes a
     run.  ``timers=`` synchronises the card around each routine and adds
     its seconds under ``"sort"`` (plan + workspace build), ``"ttmc"``,
-    ``"svd"`` and ``"fit"``.
+    ``"svd"`` and ``"fit"``.  An :class:`~repro_torch.ingest.Ingested`
+    ``t`` plans with its ingest-time stats, uses its cached workspaces and
+    gets its factors back in the original labels.
     """
-    _, t, block, row_tile = resolve_ingested(t, "tucker_hooi", block=block,
-                                             row_tile=row_tile)
+    ing, t, block, row_tile = resolve_ingested(t, "tucker_hooi", block=block,
+                                               row_tile=row_tile)
     ranks = _resolve_ranks(rank, t.dims)
     widths = _kron_widths(ranks)
 
     def _plan_and_build():
         p = plan
+        if ing is not None:
+            if p is None:
+                p = ing.plan(impl, rank=widths, kernel="ttmc",
+                             factor_ranks=ranks)
+            return p, ing.workspace(p)
         if p is None:
             from repro_torch.plan import plan_decomposition
 
@@ -248,7 +255,8 @@ def tucker_hooi(
             core = _core_from_last(factors[-1], y_last, ranks)
             fit = _fit_from_core(core, norm_x_sq)
 
-    return TuckerDecomp(core=core, factors=tuple(factors), fit=fit)
+    decomp = TuckerDecomp(core=core, factors=tuple(factors), fit=fit)
+    return decomp if ing is None else ing.restore(decomp)
 
 
 register_method(MethodSpec(

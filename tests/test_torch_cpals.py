@@ -164,12 +164,13 @@ def test_decomp_reconstruction_matches_reference():
 
 
 def test_method_registry_and_driver_errors():
-    assert available_methods() == ("cp_als", "tucker_hooi")
+    assert available_methods() == ("cp_als", "cp_nn_hals", "tucker_hooi",
+                                   "cp_als_streaming")
     assert available_methods(family="tucker") == ("tucker_hooi",)
     assert get_method("cp_als").state_aux == ("lmbda",)
     assert get_method("tucker_hooi").kernel == "ttmc"
     with pytest.raises(ValueError, match="unknown method"):
-        get_method("cp_nn_hals")
+        get_method("cp_nn_als")
     with pytest.raises(TypeError, match="materialized"):
         fit("data.tns", RANK)
     state = make_state([torch.ones(2, 2)], {"lmbda": torch.ones(2)},
@@ -190,7 +191,7 @@ def test_method_registry_and_driver_errors():
         policy="segment", backend="cpu", rank=RANK)
     with pytest.raises(ValueError, match="layout 'tns'"):
         build_workspace(pt, bad_plan)
-    with pytest.raises(NotImplementedError, match="ingested"):
+    with pytest.raises(TypeError, match="SparseTensor or repro_torch.ingest"):
         fit(object.__new__(type("Ingested", (), {"order": 3})), RANK)
     with pytest.raises(TypeError, match="CPALSState"):
         fit(pt, RANK, state={"factors": ()})

@@ -13,12 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import (SparseTensor, build_csf, build_linearized,
                               dedupe, init_factors, random_sparse)
+from repro_torch.core import csf as csf_mod
+from repro_torch.core import linearized as lin_mod
 from repro_torch.core.coo import make_generator
 from repro_torch.core.linearized import field_offsets
+from repro_torch.ingest import ingest, write_tnsb
 from repro_torch.kernels import (_build, linearized_cuda, mttkrp_cuda, ops,
                                  ref, sass_diff, syrk_cuda)
+from repro_torch.methods import fit, make_state
 
 from torch_yelp_cases import YELP, hot_yelp_tensor
 
@@ -919,3 +924,120 @@ def test_off_sort_kernels_repeat_within_reassociation_on_card(
     second = call(lin, f, mode)
     torch.cuda.synchronize()
     torch.testing.assert_close(first, second, rtol=1e-5, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the ingested path on the card: ingest, HALS on the cached workspaces,
+# checkpoints of card tensors, streaming from a .tnsb
+# ---------------------------------------------------------------------------
+
+def _ingest_source(tmp_path):
+    """A skewed tensor written as a .tnsb, and the tensor (on the CPU)."""
+    t = random_sparse((300, 200, 400), 20_000, 60, skew=1.5, device="cpu")
+    path = tmp_path / "x.tnsb"
+    write_tnsb(path, t)
+    return path, t
+
+
+def _rel_diff(a, b) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+@pytest.mark.cuda
+def test_ingest_onto_card_cold_and_warm(cuda, tmp_path, monkeypatch):
+    """A cold ingest of a .tnsb builds every workspace on the card; a warm
+    one loads them all from the cache, builds nothing, and holds the same
+    bits as the cold handle and as a CPU load of the same entry."""
+    path, _ = _ingest_source(tmp_path)
+    opts = dict(reorder="degree_sort", cache=tmp_path / "c")
+    cold = ingest(path, device=cuda, **opts)
+    assert not cold.cache_hit and cold.tensor.device.type == "cuda"
+    calls = []
+    for mod, name in ((csf_mod, "build_csf"), (lin_mod, "build_linearized")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, **k:
+                            calls.append(a) or _r(*a, **k))
+    warm = ingest(path, device=cuda, **opts)
+    on_cpu = ingest(path, device="cpu", **opts)
+    assert warm.cache_hit and on_cpu.cache_hit and calls == []
+    held = [lambda h: h.tensor.inds, lambda h: h.tensor.vals,
+            lambda h: h.relabeling.old_of_new[1],
+            lambda h: h.relabeling.entry_perm, lambda h: h._lin.hi,
+            lambda h: h._lin.lo] + [
+        (lambda h, m=m: h._csf[m].other_ids) for m in range(3)]
+    for get in held:
+        assert get(warm).device.type == "cuda"
+        assert torch.equal(get(warm), get(cold))
+        assert torch.equal(get(warm).cpu(), get(on_cpu))
+    assert warm.stats == cold.stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["cuda", "linearized_cuda"])
+def test_hals_kernels_on_ingested_handle_match_segment(cuda, tmp_path, impl):
+    """cp_nn_hals on a warm handle's cached workspaces: K1 on every mode, or
+    K3 on the sort mode and the off-sort kernel on the others, held to
+    ``segment`` from the same state at the CP limits."""
+    path, _ = _ingest_source(tmp_path)
+    ingest(path, reorder="degree_sort", cache=tmp_path / "c", device=cuda)
+    ing = ingest(path, reorder="degree_sort", cache=tmp_path / "c",
+                 device=cuda)
+    assert ing.cache_hit
+    init = init_factors(ing.dims, 35, 61, device=cuda)
+    zero = torch.tensor(0.0, device=cuda)
+    state = make_state(init, {}, zero, zero, 0)
+    counted = (mttkrp_cuda.mttkrp, linearized_cuda.mttkrp,
+               linearized_cuda.mttkrp_off_sort)
+    before = [fn.launches for fn in counted]
+    got = fit(ing, 35, method="cp_nn_hals", impl=impl, niters=5,
+              state=state)
+    torch.cuda.synchronize()
+    made = tuple(fn.launches - b for fn, b in zip(counted, before))
+    assert made == ((15, 0, 0) if impl == "cuda" else (0, 5, 10))
+    want = fit(ing, 35, method="cp_nn_hals", impl="segment", niters=5,
+               state=state)
+    assert abs(float(got.fit) - float(want.fit)) <= 1e-5
+    assert _rel_diff(got.lmbda, want.lmbda) <= 3e-2
+    for a, b, d in zip(got.factors, want.factors, ing.original_dims):
+        assert a.shape[0] == d and float(a.min()) >= 0.0
+        assert _rel_diff(a, b) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_checkpoint_manager_round_trip_of_card_tensors(cuda, tmp_path):
+    """A card state goes to the host before the save thread starts, comes
+    back onto the card, and a K1 fit resumed from it stays within the CP
+    limits of the uninterrupted one (the kernel's atomics reorder sums)."""
+    t = random_sparse((300, 200, 400), 20_000, 62, skew=1.5, device=cuda)
+    states = []
+    full = fit(t, 16, impl="cuda", niters=6, generator=63,
+               checkpoint_cb=states.append)
+    mid = states[2]
+    mgr = CheckpointManager(tmp_path, async_save=True)
+    mgr.save(int(mid.iteration), mid)
+    restored, extra = mgr.restore(mid)
+    assert extra["step"] == 3
+    for a, b in zip(restored.factors + (restored.aux["lmbda"],),
+                    mid.factors + (mid.aux["lmbda"],)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    resumed = fit(t, 16, impl="cuda", niters=6, state=restored)
+    assert abs(float(resumed.fit) - float(full.fit)) <= 1e-5
+    for a, b in zip(resumed.factors, full.factors):
+        assert _rel_diff(a, b) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_streaming_from_tnsb_on_card_matches_batch(cuda, tmp_path):
+    """cp_als_streaming from a .tnsb, one chunk on the card at a time,
+    against batch cp_als from the same state: fits within 1e-3."""
+    path, t = _ingest_source(tmp_path)
+    init = init_factors(t.dims, 8, 64, device=cuda)
+    zero = torch.tensor(0.0, device=cuda)
+    state = make_state(init, {"lmbda": torch.ones(8, device=cuda)}, zero,
+                       zero, 0)
+    streamed = fit(path, 8, method="cp_als_streaming", niters=5,
+                   chunk_nnz=4096, state=state, device=cuda)
+    batch = fit(ingest(path, device=cuda), 8, impl="segment", niters=5,
+                state=state)
+    assert streamed.factors[0].device.type == "cuda"
+    assert abs(float(streamed.fit) - float(batch.fit)) < 1e-3

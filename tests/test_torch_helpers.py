@@ -31,6 +31,21 @@ def np_coo(dims, nnz, seed, *, skew=0.0, unique=True):
     return inds, vals
 
 
+def planted(dims, true_rank, seed):
+    """Every cell of a rank-``true_rank`` tensor with positive factors:
+    (inds, vals), multilinear rank <= true_rank per mode (the numpy form of
+    the reference's fully observed ``exact_lowrank_tensor``)."""
+    rng = np.random.default_rng(seed)
+    true = [rng.uniform(0.0, 1.0, (d, true_rank)).astype(np.float32) + 0.1
+            for d in dims]
+    grids = np.meshgrid(*[np.arange(d) for d in dims], indexing="ij")
+    inds = np.stack([g.reshape(-1) for g in grids], 1).astype(np.int32)
+    prod = np.ones((inds.shape[0], true_rank), np.float32)
+    for m, a in enumerate(true):
+        prod = prod * a[inds[:, m]]
+    return inds, prod.sum(axis=1).astype(np.float32)
+
+
 def both_tensors(inds, vals, dims):
     """The same COO tensor on both sides (the port's on the CPU)."""
     nnz = int(vals.shape[0])

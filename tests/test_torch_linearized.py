@@ -24,7 +24,7 @@ from repro_torch.core import (Linearized, SparseTensor, available_impls,
                               build_workspace, mttkrp)
 from repro_torch.core import linearized as plinmod
 from repro_torch.core.coo import PAPER_DATASETS
-from repro_torch.ingest import content_key
+from repro_torch.ingest import content_key, write_tnsb
 from repro_torch.kernels import ref
 from repro_torch.methods import fit
 from repro_torch.plan import (AutotuneStore, calibration_key,
@@ -390,14 +390,18 @@ def test_calibrating_ttmc_is_refused(measure_counter):
 @pytest.mark.parametrize("kwargs", [{}, {"reorder": "degree_sort",
                                          "dims": (30, 20, 40)},
                                     {"extra": "x", "compact": True}])
-def test_content_key_matches_reference(kwargs):
+def test_content_key_matches_reference(kwargs, tmp_path):
     jt, pt = _tensors(DIMS3, nnz=400, seed=10)
     assert (content_key(pt, block=512, row_tile=128, **kwargs)
             == jax_content_key(jt, block=512, row_tile=128, **kwargs))
     assert content_key(pt, block=256, row_tile=128) != content_key(
         pt, block=512, row_tile=128)
-    with pytest.raises(NotImplementedError, match="ingest slice"):
-        content_key("tensor.tns", block=512, row_tile=128)
+    # a file's key hashes its bytes, as the reference's does
+    path = tmp_path / "tensor.tnsb"
+    write_tnsb(path, pt)
+    assert (content_key(path, block=512, row_tile=128, **kwargs)
+            == jax_content_key(path, block=512, row_tile=128, **kwargs)
+            != content_key(pt, block=512, row_tile=128, **kwargs))
 
 
 # ---------------------------------------------------------------------------

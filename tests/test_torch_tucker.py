@@ -25,27 +25,13 @@ from repro_torch.methods import (DecompState, TuckerDecomp, fit, get_method,
 from repro_torch.methods.tucker_hooi import (_init_orthonormal,
                                              _kron_widths, _resolve_ranks)
 
-from test_torch_helpers import both_tensors
+from test_torch_helpers import both_tensors, planted
 
 CASES = {3: ((12, 10, 8), 4, (2, 3, 4)), 4: ((8, 7, 6, 5), 3, (2, 3, 2, 3))}
 PORT_TO_REF = {"segment": "segment", "gather_scatter": "gather_scatter",
                "cuda": "pallas", "linearized": "linearized",
                "linearized_cuda": "linearized_pallas"}
 NITERS = 5
-
-
-def planted(dims, true_rank, seed):
-    """Every cell of a rank-``true_rank`` tensor with positive factors:
-    (inds, vals), multilinear rank <= true_rank per mode."""
-    rng = np.random.default_rng(seed)
-    true = [rng.uniform(0.0, 1.0, (d, true_rank)).astype(np.float32) + 0.1
-            for d in dims]
-    grids = np.meshgrid(*[np.arange(d) for d in dims], indexing="ij")
-    inds = np.stack([g.reshape(-1) for g in grids], 1).astype(np.int32)
-    prod = np.ones((inds.shape[0], true_rank), np.float32)
-    for m, a in enumerate(true):
-        prod = prod * a[inds[:, m]]
-    return inds, prod.sum(axis=1).astype(np.float32)
 
 
 def orthonormal(dims, ranks, seed):
@@ -216,6 +202,7 @@ def test_state_from_numpy_and_ingested_refused(problem):
     assert int(state.iteration) == 3 and float(state.fit_prev) == 0.25
     for a, b in zip(state.factors, problem["init"]):
         np.testing.assert_array_equal(a.numpy(), b)
-    with pytest.raises(NotImplementedError, match="ingested"):
+    # an object that only looks like an Ingested handle is refused
+    with pytest.raises(TypeError, match="SparseTensor or repro_torch.ingest"):
         tucker_hooi(object.__new__(type("Ingested", (), {"order": 3})),
                     (2, 2, 2))
