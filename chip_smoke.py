@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint and
-streaming paths on one CUDA card and check them.
+"""Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint,
+streaming and front-door paths on one CUDA card and check them.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -108,7 +108,32 @@ Phases; any failure raises and exits non-zero:
    the ``.tnsb`` (chunks of 2^20 entries moved to the card one at a time,
    ``decay=1``) against the batch ``segment`` fit from the same state:
    fits within 1e-3.
-14. One JSON line of kernel numbers, then, as the last line,
+14. The front door, in phase 12's directory on its ``.tnsb`` and warm
+   cache: ``repro_torch.api.cli.main(["fit", "--source", <tnsb>,
+   "--reorder", "degree_sort", "--cache", <dir>, "--impl", "cuda",
+   "--rank", "35", "--iters", "20", "--trace-dir", <dir>, ...])`` in this
+   process, the counts set to 0 just before: K1 launches 60 times and
+   nothing else, and its saved factors (``--out``) are held at the CP
+   limits to a direct ``fit(ing, 35, impl="cuda", niters=20,
+   generator=torch.Generator("cuda").manual_seed(0))``; the same with
+   ``--impl linearized_cuda`` (20 K3 + 40 off-sort launches, held to the
+   same direct fit); ``Session(RunConfig(method=MethodConfig("tucker_hooi",
+   rank=16, niters=8), plan=PlanConfig("cuda")), tensor=ing)`` (24 K1-TTMc
+   launches) held at the Tucker limits to the direct ``fit`` from the same
+   generator; ``trace <dir>``: the trace holds ``stage.ingest``,
+   ``stage.plan``, ``stage.fit``, ``sort``, ``iteration``, ``epilogue`` and
+   60 ``mttkrp`` spans with ``impl="cuda"`` on modes 0-2, the routine table
+   prints, and its ``mttkrp`` total lies within 20% of the same fit's
+   ``timers["mttkrp"]`` (the spans wrap synchronised routines); the CLI fit
+   with the trace off and on, both walls printed; a CP ``Session``'s
+   fit (60 K1, held to the direct fit) under ``torch.profiler``, its
+   kernels' device time over its wall printed as the card's busy share;
+   that Session's ``serve_handle().benchmark(queries=1_000_000,
+   batch=4096)`` (qps, p50, p99), and ``query`` on 100 000 stored
+   coordinates within a relative
+   1e-4 of a float64 reconstruction from the same factors; and
+   ``python3 -m repro_torch --list-methods`` in a subprocess (exit 0).
+15. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -117,14 +142,19 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 RANK = 35
 NITERS = 20
@@ -315,6 +345,240 @@ def subspace_gap(torch, u, v) -> float:
     sq = (torch.linalg.norm(u.T @ u) ** 2 + torch.linalg.norm(v.T @ v) ** 2
           - 2 * torch.linalg.norm(u.T @ v) ** 2)
     return math.sqrt(max(0.0, float(sq)) / u.shape[1])
+
+
+def front_door(torch, work: Path, path: Path, cache: Path, ing, t,
+               sample_inds, card: str, none: dict, zero_counts, read_counts,
+               check_against_segment, check_tucker) -> float:
+    """Phase 14: the port's front door on phase 12's ``.tnsb`` and warm
+    cache (see the module docstring).  Returns the phase's seconds."""
+    import importlib
+
+    from repro_torch.api import (MethodConfig, PlanConfig, RunConfig, Session,
+                                 cli)
+    from repro_torch.methods import fit
+
+    # the module: the package's ``cp_als`` attribute is the function
+    cp_als_mod = importlib.import_module("repro_torch.methods.cp_als")
+    from repro_torch.obs import read_trace, scoped_registry
+    from repro_torch.obs.report import routine_breakdown
+
+    start = time.perf_counter()
+    base = ["fit", "--source", str(path), "--reorder", "degree_sort",
+            "--cache", str(cache), "--rank", str(RANK), "--iters",
+            str(NITERS)]
+
+    def run_cli(argv: list[str]) -> tuple[str, float, dict[str, int]]:
+        """``cli.main(argv)`` in this process, the launch counts set to 0
+        just before and read just after: (its stdout, the host seconds,
+        the counts).  A non-zero exit is a failure of the phase."""
+        out = io.StringIO()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        text = out.getvalue()
+        print("\n".join(f"[front] | {line}" for line in text.splitlines()))
+        if rc != 0:
+            raise AssertionError(f"python -m repro_torch {argv[0]} exited "
+                                 f"{rc}")
+        return text, seconds, counts
+
+    def fit_wall(text: str) -> float:
+        return float(re.search(r"^fit=\S+ wall=(\S+)s$", text, re.M)[1])
+
+    def saved(npz: Path):
+        """The factors a CLI fit saved with ``--out``, back on the card."""
+        import numpy as np
+
+        with np.load(npz) as z:
+            order = sum(k.startswith("factor_") for k in z.files)
+            return SimpleNamespace(
+                fit=torch.tensor(z["fit"]),
+                lmbda=torch.from_numpy(z["lmbda"]).cuda(),
+                factors=tuple(torch.from_numpy(z[f"factor_{m}"]).cuda()
+                              for m in range(order)))
+
+    def cuda_generator():
+        return torch.Generator("cuda").manual_seed(0)
+
+    direct = fit(ing, RANK, impl="cuda", niters=NITERS,
+                 generator=cuda_generator())
+
+    # the traced CLI fit: the timers its auto_timers hands the driver are
+    # kept, so the trace can be held to the same fit's timers
+    timers_seen = []
+    real_auto_timers = cp_als_mod.auto_timers
+
+    def keep_timers(timers, tracer=None):
+        out = real_auto_timers(timers, tracer)
+        timers_seen.append(out[0])
+        return out
+
+    trace_dir = work / "trace"
+    cp_als_mod.auto_timers = keep_timers
+    try:
+        with scoped_registry():
+            text, cuda_s, counts = run_cli(
+                base + ["--impl", "cuda", "--trace-dir", str(trace_dir),
+                        "--out", str(work / "cuda.npz")])
+    finally:
+        cp_als_mod.auto_timers = real_auto_timers
+    print(f"[front] cli fit --impl cuda --trace-dir: launches={counts} "
+          f"host s={cuda_s:.4f} fit wall s={fit_wall(text):.2f} on {card}")
+    if counts != dict(none, mttkrp=t.order * NITERS):
+        raise AssertionError(f"cli fit --impl cuda launches {counts}, "
+                             f"expected {t.order * NITERS} K1 and nothing "
+                             "else")
+    check_against_segment(saved(work / "cuda.npz"), "cli --impl cuda",
+                          want=direct, against="direct fit", tag="front")
+
+    text, lin_s, counts = run_cli(
+        base + ["--impl", "linearized_cuda", "--out", str(work / "lin.npz")])
+    print(f"[front] cli fit --impl linearized_cuda: launches={counts} host "
+          f"s={lin_s:.4f} fit wall s={fit_wall(text):.2f} on {card}")
+    if counts != dict(none, mttkrp_lin=NITERS,
+                      mttkrp_off_sort=(t.order - 1) * NITERS):
+        raise AssertionError(f"cli fit --impl linearized_cuda launches "
+                             f"{counts}")
+    check_against_segment(saved(work / "lin.npz"), "cli --impl "
+                          "linearized_cuda", want=direct,
+                          against="direct cuda fit", tag="front")
+
+    # a Tucker Session on the warm handle, held to the direct fit
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tsess = Session(RunConfig(method=MethodConfig("tucker_hooi",
+                                                  rank=TUCKER_RANKS[0],
+                                                  niters=TUCKER_NITERS),
+                              plan=PlanConfig("cuda")), tensor=ing)
+    tdec = tsess.fit()
+    torch.cuda.synchronize()
+    tucker_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[front] Session tucker_hooi cuda: launches={counts} "
+          f"s={tucker_s:.4f} on {card}")
+    if counts != dict(none, ttmc=t.order * TUCKER_NITERS):
+        raise AssertionError(f"Session tucker_hooi launches {counts}")
+    if (tuple(tdec.core.shape) != TUCKER_RANKS
+            or not torch.isfinite(tdec.core).all()
+            or any(tuple(a.shape) != (d, r) or not torch.isfinite(a).all()
+                   for a, d, r in zip(tdec.factors, t.dims, TUCKER_RANKS))):
+        raise AssertionError("Session tucker_hooi: a core or factor of the "
+                             "wrong shape, or non-finite values")
+    check_tucker(tdec, "Session tucker_hooi cuda",
+                 want=fit(ing, TUCKER_RANKS[0], method="tucker_hooi",
+                          impl="cuda",
+                          niters=TUCKER_NITERS, generator=cuda_generator()),
+                 against="direct fit", tag="front")
+    del tsess, tdec
+
+    # the trace: its spans, and the mttkrp row against the timers
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["trace", str(trace_dir)])
+    print("\n".join(f"[front] | {line}" for line in
+                    out.getvalue().splitlines()))
+    if rc != 0:
+        raise AssertionError(f"python -m repro_torch trace exited {rc}")
+    events = read_trace(trace_dir / "trace.jsonl")
+    names = {e["name"] for e in events}
+    missing = {"stage.ingest", "stage.plan", "stage.fit", "sort",
+               "iteration", "mttkrp", "epilogue"} - names
+    mttkrp_spans = [e for e in events if e["name"] == "mttkrp"]
+    span_modes = sorted({e["args"]["mode"] for e in mttkrp_spans})
+    span_impls = sorted({e["args"]["impl"] for e in mttkrp_spans})
+    if (missing or len(mttkrp_spans) != t.order * NITERS
+            or span_modes != list(range(t.order)) or span_impls != ["cuda"]):
+        raise AssertionError(f"trace: missing spans {missing}, "
+                             f"{len(mttkrp_spans)} mttkrp spans on modes "
+                             f"{span_modes} with impls {span_impls}")
+    span_s = routine_breakdown(events)["routines"]["mttkrp"]["total_s"]
+    timer_s = timers_seen[0]["mttkrp"]
+    print(f"[front] trace mttkrp row s={span_s:.5f} timers['mttkrp'] "
+          f"s={timer_s:.5f} ratio={span_s / timer_s:.4f} on {card}")
+    if len(timers_seen) != 1 or abs(span_s - timer_s) > 0.2 * timer_s:
+        raise AssertionError("the trace's mttkrp row is not within 20% of "
+                             "the fit's timers")
+
+    # the same CLI fit with the trace off, then on
+    walls = {}
+    for label, extra in (("off", []),
+                         ("on", ["--trace-dir", str(work / "trace-2")])):
+        text, host_s, counts = run_cli(base + ["--impl", "cuda", *extra])
+        if counts != dict(none, mttkrp=t.order * NITERS):
+            raise AssertionError(f"cli fit, trace {label}: launches {counts}")
+        walls[label] = (host_s, fit_wall(text))
+    print(f"[front] cli fit --impl cuda, trace off / on: host s "
+          f"{walls['off'][0]:.4f} / {walls['on'][0]:.4f}, printed fit wall s "
+          f"{walls['off'][1]:.2f} / {walls['on'][1]:.2f} on {card}")
+
+    # serving: a CP Session's handle on the warm handle; its fit (plan +
+    # 20 iterations) runs under torch.profiler, for the card's busy share
+    from torch.profiler import ProfilerActivity, profile
+
+    zero_counts()
+    ssess = Session(RunConfig(method=MethodConfig(rank=RANK, niters=NITERS),
+                              plan=PlanConfig("cuda")), tensor=ing)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        handle = ssess.serve_handle()
+        torch.cuda.synchronize()
+    profiled_s = time.perf_counter() - t0
+    counts = read_counts()
+    busy_s = sum(ev.device_time_total for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    print(f"[front] Session cp_als cuda fit under torch.profiler: wall s="
+          f"{profiled_s:.4f}, kernels' device s={busy_s:.4f}, busy share="
+          + (f"{busy_s / profiled_s:.3f}" if busy_s > 0 else "not measured")
+          + f" on {card}")
+    if counts != dict(none, mttkrp=t.order * NITERS):
+        raise AssertionError(f"Session cp_als cuda launches {counts}")
+    check_against_segment(handle.decomp, "Session cp_als cuda", want=direct,
+                          against="direct fit", tag="front")
+    bench = handle.benchmark(queries=1_000_000, batch=4096)
+    lat = bench["latency_ms"]
+    got = handle.query(sample_inds).double()
+    dec = handle.decomp
+    want = dec.lmbda.double()[None, :].expand(sample_inds.shape[0], -1)
+    for m, a in enumerate(dec.factors):
+        want = want * a.double()[sample_inds[:, m].long()]
+    want = want.sum(dim=1)
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    print(f"[front] ServeHandle.benchmark {bench['queries']} queries in "
+          f"batches of 4096: qps={bench['qps']:.0f} serve_s="
+          f"{bench['serve_s']:.4f} p50_ms={lat['p50']:.4f} p99_ms="
+          f"{lat['p99']:.4f} ({lat['count']} batches); query of "
+          f"{sample_inds.shape[0]} stored coordinates vs float64 rel="
+          f"{rel:.3e} on {card}")
+    if not (math.isfinite(bench["qps"]) and bench["qps"] > 0
+            and math.isfinite(lat["p99"])):
+        raise AssertionError(f"serve benchmark: {bench}")
+    if not rel <= 1e-4:
+        raise AssertionError(f"ServeHandle.query differs from the float64 "
+                             f"reconstruction by {rel}")
+    del ssess, handle, dec
+
+    # the module entry point in a fresh interpreter
+    src = Path(__file__).resolve().parent / "src"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "--list-methods"],
+        env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True,
+        text=True, timeout=300)
+    print(f"[front] python3 -m repro_torch --list-methods: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.2f} s")
+    if proc.returncode != 0 or "cp_als" not in proc.stdout:
+        raise AssertionError(f"python3 -m repro_torch --list-methods: "
+                             f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    return time.perf_counter() - start
 
 
 def main() -> int:
@@ -834,23 +1098,28 @@ def main() -> int:
     print("[tucker] segment sigma_R, sigma_R+1 per mode: "
           + " ".join(f"({a:.6e}, {b:.6e})" for a, b in sigma_gap))
 
-    def check_tucker(tdec, what: str) -> None:
-        fit_diff = abs(float(tdec.fit) - float(tdec_seg.fit))
+    def check_tucker(tdec, what: str, want=None, against: str = "segment",
+                     tag: str = "tucker") -> None:
+        """Hold ``tdec`` to a Tucker fit (phase 10's ``segment`` unless
+        ``want`` is given) at the Tucker limits."""
+        want = tdec_seg if want is None else want
+        wv = want_vals if want is tdec_seg else want.values_at(sample_inds)
+        fit_diff = abs(float(tdec.fit) - float(want.fit))
         got_vals = tdec.values_at(sample_inds)
-        vals_rel = float(torch.linalg.norm(got_vals - want_vals)
-                         / torch.linalg.norm(want_vals))
+        vals_rel = float(torch.linalg.norm(got_vals - wv)
+                         / torch.linalg.norm(wv))
         gaps = [subspace_gap(torch, a, b)
-                for a, b in zip(tdec.factors, tdec_seg.factors)]
-        print(f"[tucker] {what} vs segment fit={float(tdec_seg.fit):.7f} "
+                for a, b in zip(tdec.factors, want.factors)]
+        print(f"[{tag}] {what} vs {against} fit={float(want.fit):.7f} "
               f"|diff|={fit_diff:.3e} values rel={vals_rel:.3e} max abs="
-              f"{float((got_vals - want_vals).abs().max()):.3e} subspace="
+              f"{float((got_vals - wv).abs().max()):.3e} subspace="
               + " ".join(f"{g:.3e}" for g in gaps))
         if not math.isfinite(float(tdec.fit)) or fit_diff > 1e-5:
-            raise AssertionError(f"{what}: fit {float(tdec.fit)} vs segment "
-                                 f"{float(tdec_seg.fit)}")
+            raise AssertionError(f"{what}: fit {float(tdec.fit)} vs "
+                                 f"{against} {float(want.fit)}")
         if vals_rel > 1e-3 or max(gaps) > 1e-3:
             raise AssertionError(f"{what}: values or a subspace differ from "
-                                 "segment's by more than 1e-3")
+                                 f"{against}'s by more than 1e-3")
 
     tdec, tcsf_times, tlaunches = tucker_fit(
         "cuda", dict(none, ttmc=t.order * TUCKER_NITERS))
@@ -1040,9 +1309,16 @@ def main() -> int:
         if not math.isfinite(float(sdec.fit)) or diff > 1e-3:
             raise AssertionError(f"streamed fit {float(sdec.fit)} vs batch "
                                  f"{float(bdec.fit)}")
-        del ing, hseg, wdec, rdec, sdec, bdec
+        del hseg, wdec, rdec, sdec, bdec
 
-    # --- 14. results --------------------------------------------------------
+        # --- 14. the front door: the CLI, Session, trace, serve ----------
+        front_s = front_door(torch, work, path, cache, ing, t,
+                             sample_inds, card, none, zero_counts,
+                             read_counts, check_against_segment,
+                             check_tucker)
+        del ing
+
+    # --- 15. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",
@@ -1074,6 +1350,7 @@ def main() -> int:
           "mttkrp_off_sort in fit(impl='linearized_cuda'), syrk in "
           "gram(impl='cuda'), ttmc, ttmc_lin and ttmc_off_sort in the Tucker "
           "fits of the same impls")
+    print(f"[front] the front-door phase ran {front_s:.1f} s on {card}")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

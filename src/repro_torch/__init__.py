@@ -13,13 +13,20 @@
     methods/   the method registry and ``fit`` (CP-ALS, nonnegative CP by
                HALS, Tucker HOOI, streaming CP-ALS)
     checkpoint/ keep-k, async checkpoints of a method's state
+    api/       RunConfig, Session, the executors and the CLI
+               (``python -m repro_torch``): the front door
+    obs/       spans, metrics, flight recorder, Prometheus exposition and
+               the Table-III trace report
+    serve/     the query vocabulary (values_at, top-k)
+    dist/      the straggler monitor
+    utils/     plan_report
     convert.py numpy bridges for comparing with the JAX package
 
 Entry points run on the CUDA card unless given ``device="cpu"`` (or a CPU
 tensor).  The package imports torch and numpy, never JAX or ``repro``.
 """
-from . import checkpoint, core, ingest, kernels, methods, plan
+from . import checkpoint, core, ingest, kernels, methods, obs, plan
 from .methods import fit
 
-__all__ = ["checkpoint", "core", "ingest", "kernels", "methods", "plan",
-           "fit"]
+__all__ = ["checkpoint", "core", "ingest", "kernels", "methods", "obs",
+           "plan", "fit"]

@@ -24,6 +24,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.obs import trace as obs_trace
+
 from .coo import (DeviceLike, GeneratorLike, SparseTensor, make_generator,
                   resolve_device)
 from .csf import build_csf
@@ -211,7 +213,9 @@ def _iteration_timed(ws, factors, grams, norm_x_sq, timers, *, impls,
     ``fused=False`` times each routine on its own (solving with
     :func:`solve_cholesky`, the routine-by-routine "Inverse");
     ``fused=True`` times the MTTKRP per mode and the whole post-MTTKRP chain
-    under the ``"epilogue"`` key."""
+    under the ``"epilogue"`` key.  Each routine runs inside a span of its
+    name (``mttkrp`` with its mode and impl), so an active tracer records
+    the same synchronised durations the timers add up."""
     order = len(factors)
     if fused:
         factors = tuple(factors)
@@ -219,28 +223,73 @@ def _iteration_timed(ws, factors, grams, norm_x_sq, timers, *, impls,
         lam = None
         fit = _nan(factors[0])
         for n in range(order):
-            m_mat = _timed(timers, "mttkrp", mttkrp, ws[n], factors, n,
-                           impl=impls[n])
-            factors, grams, lam, fit = _timed(
-                timers, "epilogue", fused_mode_epilogue, m_mat, factors,
-                grams, norm_x_sq, mode=n, norm_kind=norm_kind,
-                with_fit=with_fit and n == order - 1)
+            with obs_trace.span("mttkrp", mode=n, impl=impls[n]):
+                m_mat = _timed(timers, "mttkrp", mttkrp, ws[n], factors, n,
+                               impl=impls[n])
+            with obs_trace.span("epilogue", mode=n):
+                factors, grams, lam, fit = _timed(
+                    timers, "epilogue", fused_mode_epilogue, m_mat, factors,
+                    grams, norm_x_sq, mode=n, norm_kind=norm_kind,
+                    with_fit=with_fit and n == order - 1)
         return factors, grams, lam, fit
     factors = list(factors)
     grams = list(grams)
     lam = m_last = None
     for n in range(order):
-        v = _timed(timers, "ata", hadamard_grams, tuple(grams), n)
-        m_mat = _timed(timers, "mttkrp", mttkrp, ws[n], tuple(factors), n,
-                       impl=impls[n])
-        a_new = _timed(timers, "inverse", solve_cholesky, m_mat, v)
-        a_new, lam = _timed(timers, "norm", normalize, a_new, kind=norm_kind)
-        grams[n] = _timed(timers, "ata", gram, a_new)
+        with obs_trace.span("ata", mode=n):
+            v = _timed(timers, "ata", hadamard_grams, tuple(grams), n)
+        with obs_trace.span("mttkrp", mode=n, impl=impls[n]):
+            m_mat = _timed(timers, "mttkrp", mttkrp, ws[n], tuple(factors), n,
+                           impl=impls[n])
+        with obs_trace.span("inverse", mode=n):
+            a_new = _timed(timers, "inverse", solve_cholesky, m_mat, v)
+        with obs_trace.span("norm", mode=n):
+            a_new, lam = _timed(timers, "norm", normalize, a_new,
+                                kind=norm_kind)
+        with obs_trace.span("ata", mode=n):
+            grams[n] = _timed(timers, "ata", gram, a_new)
         factors[n] = a_new
         m_last = m_mat
     if with_fit:
-        fit = _timed(timers, "fit", kruskal_fit, norm_x_sq, lam,
-                     tuple(grams), m_last, factors[-1])
+        with obs_trace.span("fit"):
+            fit = _timed(timers, "fit", kruskal_fit, norm_x_sq, lam,
+                         tuple(grams), m_last, factors[-1])
     else:
         fit = _nan(factors[0])
     return tuple(factors), tuple(grams), lam, fit
+
+
+# ---------------------------------------------------------------------------
+# legacy entry point: the ALS loop lives behind the method registry
+# (repro_torch.methods.cp_als); this re-export keeps the JAX package's
+# ``core.cp_als`` name, with a once-per-process DeprecationWarning pointing
+# at the front door.
+# ---------------------------------------------------------------------------
+
+_warned_legacy = False
+
+
+def _warn_legacy_entry() -> None:
+    global _warned_legacy
+    if not _warned_legacy:
+        import warnings
+
+        warnings.warn(
+            "repro_torch.core.cp_als is a legacy entry point; new code "
+            "should go through repro_torch.api (Session / run(RunConfig)) or "
+            "repro_torch.methods.fit(..., method='cp_als')",
+            DeprecationWarning, stacklevel=3)
+        _warned_legacy = True
+
+
+def cp_als(t, rank: int, **kwargs) -> CPDecomp:
+    """Run CP-ALS per Algorithm 1 (see
+    :func:`repro_torch.methods.cp_als.cp_als`, which owns the loop).
+
+    .. deprecated:: use :func:`repro_torch.api.run` or
+       ``repro_torch.methods.fit``; warns once per process.  The import is
+       lazy: ``repro_torch.methods`` imports this module."""
+    from repro_torch.methods.cp_als import cp_als as _cp_als
+
+    _warn_legacy_entry()
+    return _cp_als(t, rank, **kwargs)

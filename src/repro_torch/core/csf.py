@@ -162,6 +162,14 @@ def build_csf(
     return _finalize(rows, oth, in_vals[perm], t, mode, block, row_tile)
 
 
+def build_csf_tiled(t: SparseTensor, mode: int, *,
+                    block: int = DEFAULT_BLOCK,
+                    row_tile: int = DEFAULT_ROW_TILE) -> CSF:
+    """Deprecated alias of :func:`build_csf` (the layouts are unified), as
+    in the JAX package."""
+    return build_csf(t, mode, block=block, row_tile=row_tile)
+
+
 def build_all_modes(
     t: SparseTensor, *, block: int = DEFAULT_BLOCK,
     row_tile: int = DEFAULT_ROW_TILE,

@@ -377,6 +377,9 @@ register_impl(ImplSpec(
     name="dense", fn=mttkrp_dense, layout="coo",
     needs_sorted=False, supports_order_gt3=True, oracle=True))
 
+# the registered names at import, the JAX package's legacy tuple
+IMPLS = tuple(REGISTRY)
+
 
 # ---------------------------------------------------------------------------
 # dispatcher

@@ -34,6 +34,7 @@ from repro_torch.core import csf as csf_mod
 from repro_torch.core import linearized as lin_mod
 from repro_torch.core.coo import DeviceLike, SparseTensor, resolve_device
 from repro_torch.core.csf import DEFAULT_BLOCK, DEFAULT_ROW_TILE
+from repro_torch.obs import trace as obs_trace
 from repro_torch.plan.stats import ModeStats, tensor_stats
 
 from . import reader
@@ -215,7 +216,8 @@ def ingest(
                           dims=dims, duplicates=duplicates,
                           extra=f"seed={seed}" if reorder == "random_block"
                           else "")
-        hit = cache.load(key, device=dev)
+        with obs_trace.span("ingest.cache.load", warm=True):
+            hit = cache.load(key, device=dev)
         if hit is not None:
             t, relabeling, csfs, lin, stats, stats_before = hit
             return Ingested(
@@ -230,23 +232,29 @@ def ingest(
         t = x if x.device == dev else SparseTensor(
             x.inds[: x.nnz], x.vals[: x.nnz], x.dims, x.nnz, device=dev)
     else:
-        t = reader.read_any(x, dims=dims, duplicates=duplicates, device=dev)
+        with obs_trace.span("ingest.parse", source=source):
+            t = reader.read_any(x, dims=dims, duplicates=duplicates,
+                                device=dev)
 
     relabeling: Optional[Relabeling] = None
     stats_before = None
     if compact or reorder != "identity":
-        stats_before = tuple(tensor_stats(t, block=block, row_tile=row_tile))
-        rel = None
-        if compact:
-            rel = compact_fn(t)
-            t = rel.apply(t)
-        if reorder != "identity":
-            r2 = make_reorder(t, reorder, block=block, seed=seed)
-            t = r2.apply(t)
-            rel = r2 if rel is None else rel.then(r2)
-        relabeling = rel
+        with obs_trace.span("ingest.relabel", reorder=reorder,
+                            compact=compact):
+            stats_before = tuple(tensor_stats(t, block=block,
+                                              row_tile=row_tile))
+            rel = None
+            if compact:
+                rel = compact_fn(t)
+                t = rel.apply(t)
+            if reorder != "identity":
+                r2 = make_reorder(t, reorder, block=block, seed=seed)
+                t = r2.apply(t)
+                rel = r2 if rel is None else rel.then(r2)
+            relabeling = rel
 
-    stats = tuple(tensor_stats(t, block=block, row_tile=row_tile))
+    with obs_trace.span("ingest.stats"):
+        stats = tuple(tensor_stats(t, block=block, row_tile=row_tile))
 
     csfs: dict[int, object] = {}
     lin = None
@@ -254,15 +262,19 @@ def ingest(
         # ALLMODE build: every mode is kept, so any later plan is a pure
         # cache read; the linearized workspace rides along unless the dims
         # exceed its 64-bit packed-index budget
-        for m in range(t.order):
-            csfs[m] = csf_mod.build_csf(t, m, block=block, row_tile=row_tile)
-        try:
-            lin = lin_mod.build_linearized(t, block=block, row_tile=row_tile)
-        except ValueError:
-            lin = None
-        cache.store(key, t, relabeling, list(csfs.values()), list(stats),
-                    None if stats_before is None else list(stats_before),
-                    lin=lin)
+        with obs_trace.span("ingest.build", modes=t.order):
+            for m in range(t.order):
+                csfs[m] = csf_mod.build_csf(t, m, block=block,
+                                            row_tile=row_tile)
+            try:
+                lin = lin_mod.build_linearized(t, block=block,
+                                               row_tile=row_tile)
+            except ValueError:
+                lin = None
+        with obs_trace.span("ingest.cache.store"):
+            cache.store(key, t, relabeling, list(csfs.values()), list(stats),
+                        None if stats_before is None else list(stats_before),
+                        lin=lin)
 
     return Ingested(tensor=t, relabeling=relabeling, stats=stats,
                     stats_before=stats_before, block=block, row_tile=row_tile,

@@ -32,6 +32,8 @@ import torch
 from repro_torch.core.coo import DeviceLike, SparseTensor, resolve_device
 from repro_torch.core.csf import CSF
 from repro_torch.core.linearized import Linearized
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.recorder import record_event
 from repro_torch.plan.stats import ModeStats
 
 from .relabel import Relabeling
@@ -185,11 +187,15 @@ class IngestCache:
         """``(tensor, relabeling, {mode: CSF}, lin, stats, stats_before)``
         on ``device`` (the card when None), or None on a miss; ``lin`` is
         None when the tensor's dims exceed its bit budget.  The arrays are
-        memory-mapped and copied to the device.  Counts hits and misses."""
+        memory-mapped and copied to the device.  Counts hits and misses on
+        the instance and in the obs metrics registry (``ingest.cache.hit`` /
+        ``ingest.cache.miss``), with a ``cache`` event each."""
         entry = self._dir(key)
         meta_path = entry / "meta.json"
         if not meta_path.exists():
             self.misses += 1
+            get_registry().counter("ingest.cache.miss").inc()
+            record_event("cache", store="ingest", key=key, hit=False)
             return None
         meta = json.loads(meta_path.read_text())
         if meta.get("version") != CACHE_FORMAT_VERSION:
@@ -197,11 +203,15 @@ class IngestCache:
             # os.replace and the entry would never heal
             shutil.rmtree(entry, ignore_errors=True)
             self.misses += 1
+            get_registry().counter("ingest.cache.miss").inc()
+            record_event("cache", store="ingest", key=key, hit=False)
             return None
         dev = resolve_device(device)
         arrays = {p.stem: np.load(p, mmap_mode="r")
                   for p in entry.glob("*.npy")}
         self.hits += 1
+        get_registry().counter("ingest.cache.hit").inc()
+        record_event("cache", store="ingest", key=key, hit=True)
 
         def get(name: str) -> torch.Tensor:
             a = np.array(arrays[name])

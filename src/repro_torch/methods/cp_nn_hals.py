@@ -28,8 +28,10 @@ from repro_torch.core.coo import GeneratorLike
 from repro_torch.core.cpals import CPDecomp, _timed, init_factors
 from repro_torch.core.gram import gram, hadamard_grams, kruskal_fit, normalize
 from repro_torch.core.mttkrp import mttkrp
+from repro_torch.obs import trace as obs_trace
 
-from .cp_als import _full_f32_matmul, plan_and_build, resolve_ingested
+from .cp_als import (_full_f32_matmul, auto_timers, plan_and_build,
+                     resolve_ingested)
 from .iteration import IterationRecorder
 from .registry import DecompState, MethodSpec, make_state, register_method
 
@@ -81,10 +83,12 @@ def _hals_iteration(ws, factors, grams, norm_x_sq, *, impls, timers=None):
             m_mat = mttkrp(ws[n], factors, n, impl=impls[n])
             factors, grams, fit = epilogue(m_mat, factors, grams, norm_x_sq)
         else:
-            m_mat = _timed(timers, "mttkrp", mttkrp, ws[n], factors, n,
-                           impl=impls[n])
-            factors, grams, fit = _timed(timers, "epilogue", epilogue, m_mat,
-                                         factors, grams, norm_x_sq)
+            with obs_trace.span("mttkrp", mode=n, impl=impls[n]):
+                m_mat = _timed(timers, "mttkrp", mttkrp, ws[n], factors, n,
+                               impl=impls[n])
+            with obs_trace.span("epilogue", mode=n):
+                factors, grams, fit = _timed(timers, "epilogue", epilogue,
+                                             m_mat, factors, grams, norm_x_sq)
     return factors, grams, fit
 
 
@@ -121,7 +125,14 @@ def cp_nn_hals(
                                                row_tile=row_tile)
     build = functools.partial(plan_and_build, ing, t, impl, plan,
                               rank=rank, block=block, row_tile=row_tile)
-    plan, ws = build() if timers is None else _timed(timers, "sort", build)
+    # tracing implies the timed path (see cp_als.auto_timers); the fused /
+    # split distinction is moot here: HALS's epilogue is already one call
+    timers, _ = auto_timers(timers)
+    if timers is None:
+        plan, ws = build()
+    else:
+        with obs_trace.span("sort"):
+            plan, ws = _timed(timers, "sort", build)
     impls = plan.impls
 
     dtype, dev = t.vals.dtype, t.device

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 
 from repro_torch.core.coo import SparseTensor
 from repro_torch.ingest.api import Ingested
+from repro_torch.obs import trace as obs_trace
 
 from .registry import DecompState, get_method
 
@@ -88,7 +89,8 @@ def fit(
 
         user_cb = checkpoint_cb
         checkpoint_cb = lambda s: user_cb(cpals_state_to_decomp(s))
-    result = spec.fn(x, rank, tol=tol, plan=plan, generator=generator,
-                     state=state, checkpoint_cb=checkpoint_cb,
-                     monitor=monitor, verbose=verbose, **kwargs)
+    with obs_trace.span("fit.dispatch", method=spec.name):
+        result = spec.fn(x, rank, tol=tol, plan=plan, generator=generator,
+                         state=state, checkpoint_cb=checkpoint_cb,
+                         monitor=monitor, verbose=verbose, **kwargs)
     return result if ing is None else ing.restore(result)

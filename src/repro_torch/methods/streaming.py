@@ -34,6 +34,9 @@ from repro_torch.core.gram import (gram, hadamard_grams, kruskal_fit,
                                    normalize, solve_cholesky)
 from repro_torch.core.mttkrp import mttkrp
 from repro_torch.ingest.reader import open_chunk_source
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.recorder import record_event
 
 from .cp_als import _full_f32_matmul
 from .iteration import IterationRecorder
@@ -153,16 +156,30 @@ def cp_als_streaming(
             with recorder.iteration(it):
                 m_last = None
                 for n in range(order):
-                    m_new = mode_mttkrp(n)
-                    v = hadamard_grams(tuple(grams), n)
-                    a_new, lmbda = normalize(solve_cholesky(m_new, v),
-                                             kind=norm_kind)
-                    grams[n] = gram(a_new)
+                    # the chunk fold is host-driven (one source pass); the
+                    # spans add no synchronisation, as the reference's
+                    with obs_trace.span("mttkrp", mode=n,
+                                        impl="gather_scatter", chunked=True):
+                        m_new = mode_mttkrp(n)
+                    with obs_trace.span("epilogue", mode=n):
+                        v = hadamard_grams(tuple(grams), n)
+                        a_new, lmbda = normalize(solve_cholesky(m_new, v),
+                                                 kind=norm_kind)
+                        grams[n] = gram(a_new)
                     factors[n] = a_new
                     m_last = m_new
-                fit = kruskal_fit(norm_x_sq, lmbda, tuple(grams), m_last,
-                                  factors[-1])
+                with obs_trace.span("fit"):
+                    fit = kruskal_fit(norm_x_sq, lmbda, tuple(grams), m_last,
+                                      factors[-1])
             delta = recorder.progress(it, fit, fit_prev)
+            if delta < 0.0 and it > start_iter and obs_trace.tracing():
+                # a fit DROP on a streaming fold is the drift signal (the
+                # evolving target moved under the factors)
+                registry = get_registry()
+                registry.gauge("stream.fit_drop").set(-delta)
+                registry.counter("stream.fit_drops").inc()
+                record_event("stream.drift", i=int(it), drop=-delta,
+                             fit=float(fit))
             if checkpoint_cb is not None:
                 checkpoint_cb(make_state(factors, {"lmbda": lmbda}, fit,
                                          fit_prev, it + 1))

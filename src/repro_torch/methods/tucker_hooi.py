@@ -28,8 +28,9 @@ import torch
 from repro_torch.core.coo import DeviceLike, GeneratorLike, make_generator
 from repro_torch.core.cpals import _timed, build_workspace
 from repro_torch.core.ttmc import ttmc
+from repro_torch.obs import trace as obs_trace
 
-from .cp_als import _full_f32_matmul, resolve_ingested
+from .cp_als import _full_f32_matmul, auto_timers, resolve_ingested
 from .iteration import IterationRecorder
 from .registry import DecompState, MethodSpec, make_state, register_method
 
@@ -197,6 +198,9 @@ def tucker_hooi(
                                    factor_ranks=ranks)
         return p, build_workspace(t, p)
 
+    # tracing implies the timed path (see cp_als.auto_timers), so the
+    # "ttmc" and "fit" spans time synchronised work
+    timers, _ = auto_timers(timers)
     if timers is not None:
         plan, ws = _timed(timers, "sort", _plan_and_build)
     else:
@@ -227,18 +231,21 @@ def tucker_hooi(
             with recorder.iteration(it):
                 factors = list(factors)
                 for n in range(order):
-                    factors[n], y_last = _hooi_mode(
-                        ws[n], tuple(factors), mode=n, impl=impls[n],
-                        out_rank=ranks[n], timers=timers)
+                    # the TTMc and its thin SVD: one span a mode
+                    with obs_trace.span("ttmc", mode=n, impl=impls[n]):
+                        factors[n], y_last = _hooi_mode(
+                            ws[n], tuple(factors), mode=n, impl=impls[n],
+                            out_rank=ranks[n], timers=timers)
                 factors = tuple(factors)
-                if timers is None:
-                    core = _core_from_last(factors[-1], y_last, ranks)
-                    fit = _fit_from_core(core, norm_x_sq)
-                else:
-                    core = _timed(timers, "fit", _core_from_last,
-                                  factors[-1], y_last, ranks)
-                    fit = _timed(timers, "fit", _fit_from_core, core,
-                                 norm_x_sq)
+                with obs_trace.span("fit"):
+                    if timers is None:
+                        core = _core_from_last(factors[-1], y_last, ranks)
+                        fit = _fit_from_core(core, norm_x_sq)
+                    else:
+                        core = _timed(timers, "fit", _core_from_last,
+                                      factors[-1], y_last, ranks)
+                        fit = _timed(timers, "fit", _fit_from_core, core,
+                                     norm_x_sq)
             delta = recorder.progress(it, fit, fit_prev)
             if checkpoint_cb is not None:
                 checkpoint_cb(make_state(factors, {}, fit, fit_prev, it + 1))

@@ -29,6 +29,9 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence, Union
 
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.recorder import record_event
+
 CALIBRATION_FORMAT_VERSION = 1
 
 
@@ -103,18 +106,27 @@ class AutotuneStore:
 
     def load(self, key: str) -> Optional[dict]:
         """The stored ``{"costs": {impl: ms}, "meta": {...}}`` payload, or
-        None on a miss or a version mismatch (whose file is removed)."""
+        None on a miss or a version mismatch (whose file is removed).
+        Counts hits and misses on the instance and in the obs metrics
+        registry (``autotune.hit`` / ``autotune.miss``), with a ``cache``
+        event each."""
         p = self._path(key)
         try:
             payload = json.loads(p.read_text())
         except (OSError, json.JSONDecodeError):
             self.misses += 1
+            get_registry().counter("autotune.miss").inc()
+            record_event("cache", store="autotune", key=key, hit=False)
             return None
         if payload.get("version") != CALIBRATION_FORMAT_VERSION:
             p.unlink(missing_ok=True)  # the next store() republishes it
             self.misses += 1
+            get_registry().counter("autotune.miss").inc()
+            record_event("cache", store="autotune", key=key, hit=False)
             return None
         self.hits += 1
+        get_registry().counter("autotune.hit").inc()
+        record_event("cache", store="autotune", key=key, hit=True)
         return payload
 
     def store(self, key: str, costs: dict, *,

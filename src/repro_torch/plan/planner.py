@@ -37,6 +37,7 @@ from repro_torch.core.csf import DEFAULT_BLOCK, DEFAULT_ROW_TILE, build_csf
 from repro_torch.core.linearized import build_linearized, check_bit_budget
 from repro_torch.core.mttkrp import REGISTRY, available_impls, get_impl, mttkrp
 from repro_torch.core.ttmc import TTMC_REGISTRY, ttmc
+from repro_torch.obs import trace as obs_trace
 
 from .autotune import as_store, calibration_key, canonical_candidates
 from .stats import ModeStats, mode_stats, stats_digest, tensor_stats
@@ -94,6 +95,10 @@ class ModePlan:
     # "measured-fresh" (timed in this call) or "measured-cached" (loaded
     # from the autotune store)
     source: str = "predicted"
+
+    @property
+    def predicted_regime(self) -> str:
+        return self.stats.regime if self.stats is not None else "n/a"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,9 +216,11 @@ def _measured_costs(t: SparseTensor, mode: int, names, *, rank: int,
             hit = autotune.load(key)
             if hit is not None and set(hit["costs"]) == set(names):
                 return dict(hit["costs"]), "measured-cached"
-    costs = _calibrate_mode(t, mode, names, rank=rank, block=block,
-                            row_tile=row_tile, kernel=kernel,
-                            factor_ranks=factor_ranks)
+    with obs_trace.span("plan.calibrate", mode=mode, kernel=kernel,
+                        candidates=len(tuple(names))):
+        costs = _calibrate_mode(t, mode, names, rank=rank, block=block,
+                                row_tile=row_tile, kernel=kernel,
+                                factor_ranks=factor_ranks)
     if key is not None:
         autotune.store(key, costs, meta={
             "mode": mode, "backend": backend, "rank": int(rank),
@@ -362,7 +369,8 @@ def plan_decomposition(
                     f"row_tile={row_tile})")
         stats_per_mode = list(stats)
     elif with_stats or calibrate:
-        stats_per_mode = tensor_stats(t, block=block, row_tile=row_tile)
+        with obs_trace.span("plan.stats"):
+            stats_per_mode = tensor_stats(t, block=block, row_tile=row_tile)
     else:
         stats_per_mode = [None] * t.order
     modes = []

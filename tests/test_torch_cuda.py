@@ -1041,3 +1041,78 @@ def test_streaming_from_tnsb_on_card_matches_batch(cuda, tmp_path):
                 state=state)
     assert streamed.factors[0].device.type == "cuda"
     assert abs(float(streamed.fit) - float(batch.fit)) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the front door on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traced", [False, True])
+def test_session_fit_on_card_launches_k1_and_matches_direct_fit(
+        cuda, tmp_path, traced):
+    """A Session over a .tnsb on the card with plan policy cuda: K1 on
+    every mode of every iteration, and the direct ``fit`` from the same
+    generator seed within the CP limits (traced: the spans' timed path)."""
+    from repro_torch.api import (DataConfig, MethodConfig, ObsConfig,
+                                 PlanConfig, RunConfig, Session)
+
+    path, _ = _ingest_source(tmp_path)
+    obs = (ObsConfig(enabled=True, trace_dir=str(tmp_path / "trace"))
+           if traced else ObsConfig())
+    cfg = RunConfig(data=DataConfig(source=str(path), reorder="degree_sort",
+                                    cache=str(tmp_path / "c")),
+                    plan=PlanConfig("cuda"),
+                    method=MethodConfig(rank=16, niters=4), obs=obs)
+    sess = Session(cfg)
+    before = mttkrp_cuda.mttkrp.launches
+    dec = sess.fit()
+    torch.cuda.synchronize()
+    assert mttkrp_cuda.mttkrp.launches - before == 3 * 4
+    assert dec.factors[0].device.type == "cuda"
+    want = fit(ingest(path, reorder="degree_sort", device=cuda), 16,
+               impl="cuda", niters=4,
+               generator=torch.Generator("cuda").manual_seed(0))
+    assert abs(float(dec.fit) - float(want.fit)) <= 1e-5
+    assert _rel_diff(dec.lmbda, want.lmbda) <= 3e-2
+    for a, b in zip(dec.factors, want.factors):
+        assert _rel_diff(a, b) <= 3e-2
+    if traced:
+        from repro_torch.obs import read_trace
+
+        spans = [e for e in read_trace(tmp_path / "trace" / "trace.jsonl")
+                 if e["name"] == "mttkrp"]
+        assert len(spans) == 12
+        assert {e["args"]["impl"] for e in spans} == {"cuda"}
+
+
+@pytest.mark.cuda
+def test_session_without_a_device_lives_on_the_card(cuda):
+    from repro_torch.api import (DataConfig, MethodConfig, RunConfig,
+                                 Session)
+
+    sess = Session(RunConfig(data=DataConfig(dataset="yelp", scale=1e-4),
+                             method=MethodConfig(rank=4, niters=2)))
+    assert sess.device.type == "cuda"
+    assert sess.ingest().tensor.inds.device.type == "cuda"
+    assert sess.method_generator().device.type == "cuda"
+    dec = sess.fit()
+    assert all(a.device.type == "cuda" for a in dec.factors)
+
+
+@pytest.mark.cuda
+def test_serve_handle_benchmark_on_card(cuda):
+    from repro_torch.api import (MethodConfig, PlanConfig, RunConfig,
+                                 Session)
+
+    t = random_sparse((300, 200, 400), 20_000, 65, skew=1.5, device=cuda)
+    handle = Session(RunConfig(method=MethodConfig(rank=8, niters=3),
+                               plan=PlanConfig("cuda")),
+                     tensor=t).serve_handle()
+    bench = handle.benchmark(queries=8192, batch=512)
+    lat = bench["latency_ms"]
+    assert bench["queries"] == 8192 and math.isfinite(bench["qps"])
+    assert lat["count"] == 16
+    assert all(math.isfinite(lat[k]) for k in ("mean", "p50", "p99"))
+    got = handle.query(t.inds[:1000])
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
