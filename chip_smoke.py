@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint,
-streaming and front-door paths on one CUDA card and check them.
+streaming, front-door, serving and distributed paths on one CUDA card and
+check them.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -133,7 +134,44 @@ Phases; any failure raises and exits non-zero:
    coordinates within a relative
    1e-4 of a float64 reconstruction from the same factors; and
    ``python3 -m repro_torch --list-methods`` in a subprocess (exit 0).
-15. One JSON line of kernel numbers, then, as the last line,
+   The CP Session stays for phase 15.
+15. Serving, on phase 14's CP Session (tenants ``default`` and ``b``, two
+   workers): ``decomp_server()``; ``values_at`` on the 100 000 stored
+   coordinates within a relative 1e-4 of the float64 reconstruction, and
+   ``top_k_for_user`` (k = 10) against a float64 score row; a
+   ``TenantModel`` with one 4096 bucket, its graph replay equal to the
+   eager ``ServeHandle.query`` bit for bit, then both timed over 200
+   batches of 4096 from host numpy to host numpy, beside the model's graph
+   called alone (pinned staging), the same graph driven with a pageable
+   copy-in and ``.cpu()``, its replay alone, and the eager query on the
+   card with one synchronisation at the end: host microseconds a batch and
+   values/s; 8 client threads of mixed ``values_at`` (1-256
+   stored coordinates, each answer within 1e-4 of float64) and ``top_k``
+   (1-16 users of a pool, scores within 1e-4 of the float64 top 10) for 4
+   s, ``b`` republished halfway: values/s, p50/p99 of
+   ``serve.default.query_ms``, no failed future, no kernel launch, and at
+   most one capture a bucket and a (bucket, k) on every model (the old
+   ``b`` too); an LRU eviction under a budget of 2.5 models, the evicted
+   model collected; ``ServeDaemon`` on an ephemeral port (``/healthz``,
+   ``/v1/tenants``, ``/v1/top_k``, ``POST /v1/values_at``, ``/metrics``
+   holding ``serve_qps``, ``POST /v1/shutdown``); and ``python3 -m
+   repro_torch serve-daemon --source <tnsb> --reorder degree_sort --cache
+   <dir> --rank 35 --port 0 --duration-s 30`` in a subprocess, its URL
+   read from its ``# serving ... at`` line, one ``/v1/top_k``, then
+   ``POST /v1/shutdown`` and exit 0.
+16. The dist executor: ``Session(RunConfig(exec=ExecConfig(
+   executor="dist", shard_c=...)), tensor=ing)`` with ``shard_c`` off and
+   on, each on a one-rank NCCL group the Session starts and ends, R = 35,
+   20 iterations, its plan restricted to ``gather_scatter``/``segment``,
+   no kernel launch, held at the CP limits to a local ``segment`` Session
+   fit from the same generator; plan, process-group, partition and
+   iteration seconds beside the local fit's wall and its timed routine
+   split; then the iteration body's local MTTKRPs on the rank's block as
+   the fit prepares it (zero-valued padding dropped; ``scatter``;
+   ``segment`` sorted once), and the ``segment`` reduction of the block as
+   partitioned (padding kept) that sorts on every call, timed a mode,
+   with the longest segment of each mode with and without the padding.
+17. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -161,6 +199,11 @@ NITERS = 20
 TUCKER_RANKS = (16, 16, 16)
 TUCKER_NITERS = 8
 STREAM_NITERS = 5
+SERVE_TENANTS = ("default", "b")
+SERVE_WORKERS = 2
+SERVE_CLIENTS = 8
+SERVE_LOAD_S = 4.0
+TOP_K = 10
 # NVIDIA H100 SXM data sheet (dense, no sparsity) at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -349,13 +392,14 @@ def subspace_gap(torch, u, v) -> float:
 
 def front_door(torch, work: Path, path: Path, cache: Path, ing, t,
                sample_inds, card: str, none: dict, zero_counts, read_counts,
-               check_against_segment, check_tucker) -> float:
+               check_against_segment, check_tucker):
     """Phase 14: the port's front door on phase 12's ``.tnsb`` and warm
-    cache (see the module docstring).  Returns the phase's seconds."""
+    cache (see the module docstring).  Returns the phase's seconds and its
+    fitted CP Session, which phase 15 serves."""
     import importlib
 
-    from repro_torch.api import (MethodConfig, PlanConfig, RunConfig, Session,
-                                 cli)
+    from repro_torch.api import (MethodConfig, PlanConfig, RunConfig,
+                                 ServeConfig, Session, cli)
     from repro_torch.methods import fit
 
     # the module: the package's ``cp_als`` attribute is the function
@@ -524,7 +568,10 @@ def front_door(torch, work: Path, path: Path, cache: Path, ing, t,
 
     zero_counts()
     ssess = Session(RunConfig(method=MethodConfig(rank=RANK, niters=NITERS),
-                              plan=PlanConfig("cuda")), tensor=ing)
+                              plan=PlanConfig("cuda"),
+                              serve=ServeConfig(tenants=SERVE_TENANTS,
+                                                workers=SERVE_WORKERS)),
+                    tensor=ing)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -564,7 +611,7 @@ def front_door(torch, work: Path, path: Path, cache: Path, ing, t,
     if not rel <= 1e-4:
         raise AssertionError(f"ServeHandle.query differs from the float64 "
                              f"reconstruction by {rel}")
-    del ssess, handle, dec
+    del handle, dec
 
     # the module entry point in a fresh interpreter
     src = Path(__file__).resolve().parent / "src"
@@ -578,6 +625,399 @@ def front_door(torch, work: Path, path: Path, cache: Path, ing, t,
     if proc.returncode != 0 or "cp_als" not in proc.stdout:
         raise AssertionError(f"python3 -m repro_torch --list-methods: "
                              f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    return time.perf_counter() - start, ssess
+
+
+def serving(torch, path: Path, cache: Path, ssess, sample_inds, card: str,
+            none: dict, zero_counts, read_counts) -> float:
+    """Phase 15: serving phase 14's fitted CP Session (see the module
+    docstring).  Returns the phase's seconds."""
+    import gc
+    import queue
+    import threading
+    import urllib.request
+    import weakref
+
+    import numpy as np
+
+    from repro_torch.obs import scoped_registry
+    from repro_torch.serve import ModelRegistry, ServeDaemon, TenantModel
+    from repro_torch.serve.queries import resident_bytes
+
+    start = time.perf_counter()
+    zero_counts()
+    srv = ssess.decomp_server()  # publishes the fit under both tenants
+    handle = ssess.serve_handle()
+    dec, dims = handle.decomp, handle.dims
+    if sorted(srv.tenants()) != sorted(SERVE_TENANTS):
+        raise AssertionError(f"decomp_server tenants {srv.tenants()}")
+
+    # float64 references: the stored coordinates' values, and the score
+    # rows of a pool of users
+    lam64 = dec.lmbda.double()
+    f64 = [a.double() for a in dec.factors]
+    want = lam64[None, :].expand(sample_inds.shape[0], -1)
+    for m, a in enumerate(f64):
+        want = want * a[sample_inds[:, m].long()]
+    want = want.sum(dim=1).cpu().numpy()
+    coords = sample_inds.cpu().numpy().astype(np.int32)
+    weights = lam64 * f64[2].sum(dim=0)
+    pool = np.arange(64) * (dims[0] // 64)
+    rows64 = (f64[0][torch.from_numpy(pool).cuda()] * weights) @ f64[1].T
+    top64 = torch.topk(rows64, TOP_K, dim=1).values.cpu().numpy()
+    rows64 = rows64.cpu().numpy()
+
+    def rel(got, ref) -> float:
+        return float(np.linalg.norm(got.astype(np.float64) - ref)
+                     / np.linalg.norm(ref))
+
+    got = srv.values_at("default", coords)
+    vrel = rel(got, want)
+    scores, items = srv.top_k_for_user("default", int(pool[1]), k=TOP_K)
+    krel = max(rel(scores, top64[1]), rel(scores, rows64[1][items]))
+    print(f"[serve] decomp_server tenants {sorted(srv.tenants())}: values_at "
+          f"of {coords.shape[0]} stored coordinates vs float64 rel="
+          f"{vrel:.3e}; top_k_for_user({pool[1]}, k={TOP_K}) scores vs the "
+          f"float64 row rel={krel:.3e} on {card}")
+    if not (vrel <= 1e-4 and krel <= 1e-4):
+        raise AssertionError("served values or top-k scores differ from the "
+                             "float64 reconstruction")
+
+    # a graph-replayed values_at at 4096 against the eager ServeHandle.query
+    reps, n = 200, 4096
+    m4096 = TenantModel(dec, dims, buckets=(n,))
+    batch = coords[:n]
+    graph_vals = m4096.values_at(batch)
+    eager_vals = handle.query(batch).cpu().numpy()
+    if not np.array_equal(graph_vals, eager_vals):
+        raise AssertionError("the graph replay differs from the eager query")
+    dev_batch = torch.from_numpy(batch).cuda()
+    # the model's graph called alone, the same graph driven with a pageable
+    # copy in and a synchronised .cpu() out, and its replay alone (private
+    # attributes: this is a measurement)
+    graph = m4096._variants[("values_at", n)]
+
+    def pageable():
+        graph._in.copy_(torch.from_numpy(batch))
+        graph._graph.replay()
+        return graph._out[0].cpu().numpy()
+
+    if not np.array_equal(pageable(), graph_vals):
+        raise AssertionError("the pageable replay differs")
+    timings = {}
+    for label, fn in (
+            ("TenantModel.values_at", lambda: m4096.values_at(batch)),
+            ("its graph call (pinned staging, one sync)",
+             lambda: graph(batch)),
+            ("the same graph, pageable copy-in and .cpu()", pageable),
+            ("its replay alone", lambda: (graph._graph.replay(),
+                                          torch.cuda.synchronize())),
+            ("eager query + .cpu() (host in, numpy out)",
+             lambda: handle.query(batch).cpu()),
+            ("eager query on the card, one sync at the end",
+             lambda: handle.query(dev_batch))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        timings[label] = (time.perf_counter() - t0) / reps
+    print(f"[serve] {n}-query batches, {reps} each, on {card}: " + "; ".join(
+        f"{label}: {s * 1e6:.1f} us a batch, {n / s:.0f} values/s"
+        for label, s in timings.items())
+        + f"; captures {m4096.variant_keys}")
+    del m4096, graph
+
+    # 8 clients of mixed values_at / top_k, a republish of b halfway; each
+    # client keeps its answers, checked after the load so the checks take
+    # no time from it
+    failures = []
+    answers: list[list] = [[] for _ in range(SERVE_CLIENTS)]
+    old_b = srv.registry.get("b").model
+    stop = threading.Event()
+
+    def client(seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            tenant = SERVE_TENANTS[int(rng.integers(0, 2))]
+            try:
+                if rng.random() < 0.7:
+                    idx = rng.integers(0, coords.shape[0],
+                                       int(rng.integers(1, 257)))
+                    got = srv.submit_values_at(tenant, coords[idx]).result()
+                    answers[seed].append(("values_at", idx, got))
+                else:
+                    pick = rng.integers(0, pool.size,
+                                        int(rng.integers(1, 17)))
+                    got, _ = srv.submit_top_k(tenant, pool[pick],
+                                              k=TOP_K).result()
+                    answers[seed].append(("top_k", pick, got))
+            except Exception as exc:  # counted: the phase fails below
+                failures.append(repr(exc))
+
+    with scoped_registry() as reg:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(SERVE_LOAD_S / 2)
+        srv.publish("b", dec, dims)
+        time.sleep(SERVE_LOAD_S / 2)
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        load_s = time.perf_counter() - t0
+        lat = reg.histogram("serve.default.query_ms").summary()
+        fill = reg.histogram("serve.batch_fill").summary()
+        batches = srv.queue.batches_executed
+    answered = {"values_at": 0, "top_k": 0}
+    worst = {"values_at": 0.0, "top_k": 0.0}
+    for kind, idx, got in (a for per in answers for a in per):
+        ref = want[idx] if kind == "values_at" else top64[idx]
+        answered[kind] += idx.size
+        worst[kind] = max(worst[kind], rel(got, ref))
+    print(f"[serve] {SERVE_CLIENTS} clients x {load_s:.2f} s, "
+          f"{SERVE_WORKERS} workers, b republished halfway: "
+          f"{answered['values_at']} values + {answered['top_k']} top-{TOP_K} "
+          f"users = {sum(answered.values()) / load_s:.0f} answers/s "
+          f"({answered['values_at'] / load_s:.0f} values/s); "
+          f"serve.default.query_ms p50={lat['p50']:.4f} p99="
+          f"{lat['p99']:.4f} ({lat['count']}); batch fill mean="
+          f"{fill['mean']:.3f}; batches={batches}; failed futures="
+          f"{len(failures)}; worst rel vs float64 {worst}; launches="
+          f"{read_counts()} on {card}")
+    if max(worst.values()) > 1e-4:
+        raise AssertionError(f"served answers differ from float64: {worst}")
+    models = {"default": srv.registry.get("default").model, "b (old)": old_b,
+              "b (new)": srv.registry.get("b").model}
+    for name, model in models.items():
+        print(f"[serve] captures, {name}: {model.compile_count} "
+              f"{model.variant_keys}")
+        keys = model.variant_keys
+        if len(keys) != len(set(keys)) or any(
+                c > len(model.buckets) for c in model.compile_count.values()):
+            raise AssertionError(f"{name}: more than one capture a bucket")
+    if failures or read_counts() != none:
+        raise AssertionError(f"failed futures {failures[:3]}, launches "
+                             f"{read_counts()}")
+    del models, old_b
+
+    # an eviction under a budget of two models and a half
+    one = resident_bytes(dec)
+    reg = ModelRegistry(budget_bytes=2 * one + one // 2,
+                        buckets=(64,))
+    for tenant in ("x", "y"):
+        reg.publish(tenant, dec, dims).model.values_at(coords[:64])
+    gone = weakref.ref(reg.get("y").model)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reg.get("x")
+    reg.publish("z", dec, dims)
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    print(f"[serve] budget {2 * one + one // 2} B ({one} B a model): "
+          f"resident {sorted(reg.tenants())}, evicted {reg.evicted}, the "
+          f"evicted model collected={gone() is None}; card memory allocated "
+          f"{before} -> {after} B")
+    if reg.evicted != ["y"] or "y" in reg or gone() is not None:
+        raise AssertionError("the LRU tenant was not evicted and freed")
+    del reg
+
+    # the daemon on an ephemeral port
+    def http(url: str, data: bytes | None = None):
+        with urllib.request.urlopen(url, data=data, timeout=60) as r:
+            return r.status, r.read().decode()
+
+    with scoped_registry():
+        srv.values_at("default", coords[:8])  # a qps reading to scrape
+        with ServeDaemon(srv, port=0) as daemon:
+            status = {}
+            status["healthz"], body = http(daemon.url + "/healthz")
+            health = json.loads(body)
+            status["tenants"], body = http(daemon.url + "/v1/tenants")
+            tenants = json.loads(body)
+            status["top_k"], body = http(
+                f"{daemon.url}/v1/top_k?tenant=default&user={pool[2]}"
+                f"&k={TOP_K}")
+            topk = json.loads(body)
+            status["values_at"], body = http(
+                daemon.url + "/v1/values_at", json.dumps(
+                    {"tenant": "b", "coords": coords[:3].tolist()}).encode())
+            vals = np.asarray(json.loads(body)["values"])
+            status["metrics"], prom = http(daemon.url + "/metrics")
+            status["shutdown"], _ = http(daemon.url + "/v1/shutdown", b"")
+            down = daemon.shutdown_requested.wait(timeout=10)
+    print(f"[serve] ServeDaemon {daemon.url}: statuses {status}; healthz "
+          f"{health['status']}, tenants {sorted(tenants)}, top_k items "
+          f"{topk['items'][:3]}..., values_at rel="
+          f"{rel(vals, want[:3]):.3e}, /metrics has serve_qps "
+          f"{'serve_qps' in prom}, shutdown {down}")
+    if (set(status.values()) != {200} or health["status"] != "serving"
+            or sorted(tenants) != sorted(SERVE_TENANTS)
+            or rel(np.asarray(topk["scores"]), top64[2]) > 1e-4
+            or rel(vals, want[:3]) > 1e-4 or "serve_qps" not in prom
+            or not down):
+        raise AssertionError("the daemon's endpoints")
+
+    # python -m repro_torch serve-daemon in a subprocess
+    cmd = [sys.executable, "-m", "repro_torch", "serve-daemon", "--source",
+           str(path), "--reorder", "degree_sort", "--cache", str(cache),
+           "--rank", str(RANK), "--port", "0", "--duration-s", "30"]
+    src = Path(__file__).resolve().parent / "src"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=str(src)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(x) for x in proc.stdout] + [lines.put(None)],
+        daemon=True)
+    reader.start()
+    out, url = [], None
+    try:
+        while url is None:
+            line = lines.get(timeout=300)
+            if line is None:
+                break
+            out.append(line.rstrip())
+            hit = re.match(r"# serving .* at (http://\S+)", line)
+            url = hit[1] if hit else None
+        up_s = time.perf_counter() - t0
+        if url is None:
+            raise AssertionError("serve-daemon printed no URL:\n"
+                                 + "\n".join(out[-20:]))
+        code, body = http(f"{url}/v1/top_k?user={pool[3]}&k={TOP_K}")
+        items = json.loads(body)["items"]
+        http(url + "/v1/shutdown", b"")
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    while not lines.empty():
+        line = lines.get()
+        if line is not None:
+            out.append(line.rstrip())
+    print("\n".join(f"[serve] | {line}" for line in out))
+    print(f"[serve] {' '.join(cmd[1:4])} ...: serving after {up_s:.2f} s, "
+          f"/v1/top_k {code} with {len(items)} items, exit {rc} after "
+          f"{time.perf_counter() - t0:.2f} s on {card}")
+    if code != 200 or len(items) != TOP_K or rc != 0:
+        raise AssertionError(f"serve-daemon: top_k {code}, exit {rc}")
+    return time.perf_counter() - start
+
+
+def distributed(torch, ing, card: str, none: dict, zero_counts, read_counts,
+                check_against_segment) -> float:
+    """Phase 16: the dist executor at world size 1 on NCCL (see the module
+    docstring).  Returns the phase's seconds."""
+    import torch.distributed as dist
+
+    import repro_torch.core.distributed as dist_mod
+
+    dev = torch.device("cuda")
+    from repro_torch.api import (ExecConfig, MethodConfig, PlanConfig,
+                                 RunConfig, Session)
+    from repro_torch.core.cpals import ROUTINES_FUSED
+    from repro_torch.methods import fit
+
+    start = time.perf_counter()
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    method = MethodConfig(rank=RANK, niters=NITERS)
+    local = Session(RunConfig(method=method, plan=PlanConfig("segment")),
+                    tensor=ing)
+    ldec, local_s = sync_time(local.fit)
+    timers: dict[str, float] = {}
+    _, timed_s = sync_time(lambda: fit(
+        ing, RANK, impl="segment", niters=NITERS, timers=timers,
+        fused_epilogue=True, generator=local.method_generator()))
+    print(f"[dist] local segment Session fit={float(ldec.fit):.7f} wall_s="
+          f"{local_s:.4f}; timed: wall_s={timed_s:.4f} "
+          + " ".join(f"{k}_s={timers.get(k, 0.0):.4f}"
+                     for k in ROUTINES_FUSED) + f" on {card}")
+
+    real_partition = dist_mod.partition_tensor
+    for shard_c in (False, True):
+        parts = []
+
+        def timed_partition(*args, **kwargs):
+            out, s = sync_time(lambda: real_partition(*args, **kwargs))
+            parts.append(s)
+            return out
+
+        sess = Session(RunConfig(method=method, exec=ExecConfig(
+            executor="dist", shard_c=shard_c)), tensor=ing)
+        zero_counts()
+        dist_mod.partition_tensor = timed_partition
+        try:
+            plan, plan_s = sync_time(sess.plan)
+            mesh, mesh_s = sync_time(sess.mesh)
+            ddec, fit_s = sync_time(sess.fit)
+            backend, shape = dist.get_backend(), mesh.shape
+        finally:
+            dist_mod.partition_tensor = real_partition
+            sess.close()
+        counts = read_counts()
+        loop_s = fit_s - sum(parts)
+        print(f"[dist] executor=dist shard_c={shard_c} on {backend} "
+              f"{shape}: plan {plan.summary()} s={plan_s:.4f}; process "
+              f"group + grid s={mesh_s:.4f}; fit={float(ddec.fit):.7f} "
+              f"wall_s={fit_s:.4f} (partition_s={sum(parts):.4f}, {NITERS} "
+              f"iterations s={loop_s:.4f}); launches={counts}; group "
+              f"ended={not dist.is_initialized()} on {card}")
+        if (backend != "nccl" or shape != {"data": 1, "model": 1}
+                or counts != none or dist.is_initialized()
+                or not set(plan.impls) <= set(dist_mod.DIST_IMPLS)):
+            raise AssertionError("the dist fit: backend, grid, launches or "
+                                 "plan")
+        check_against_segment(ddec, f"dist shard_c={shard_c}", want=ldec,
+                              against="local segment", tag="dist")
+
+    # the iteration body's local MTTKRPs on the one rank's block, as the
+    # fit prepares it (a segment mode's entries sorted once), and the
+    # segment reduction that sorts on every call
+    from repro_torch.dist import Mesh
+
+    inds, vals, dims_p = real_partition(ing.tensor, 1, 1)
+    inds, vals = torch.from_numpy(inds).cuda(), torch.from_numpy(vals).cuda()
+    factors = tuple(a.contiguous() for a in ldec.factors)
+    blocks = {}
+    for impl in ("scatter", "segment"):
+        block, prep_s = sync_time(lambda: dist_mod.local_block(
+            inds, vals, Mesh(("data", "model"), (1, 1), device=dev),
+            dims_p, (impl,) * 3))
+        ms = [time_ms(torch, lambda: dist_mod._local_mttkrp(
+            block.inds[m], block.vals[m], m, *factors, dims_p[m],
+            impl=impl, lengths=block.lengths[m])) for m in range(3)]
+        print(f"[dist] local MTTKRP impl={impl} (block prepared in "
+              f"{prep_s:.4f} s) ms per mode "
+              + " / ".join(f"{x:.4f}" for x in ms) + f" on {card}")
+        blocks[impl] = block
+    # the block as partitioned, its zero-valued padding kept (all of it on
+    # the first rows), reduced by a segment sum that sorts on every call
+    raw_inds, raw_vals = inds[0, 0], vals[0, 0]
+    longest = [(int(torch.bincount(raw_inds[:, m]).max()),
+                int(blocks["segment"].lengths[m].max())) for m in range(3)]
+    ms = [time_ms(torch, lambda: dist_mod._local_mttkrp(
+        raw_inds, raw_vals, m, *factors, dims_p[m], impl="segment"))
+        for m in range(3)]
+    print(f"[dist] local MTTKRP impl=segment on the block as partitioned "
+          f"({raw_vals.shape[0]} entries, "
+          f"{blocks['segment'].vals[0].shape[0]} of them stored), sorted on "
+          f"every call, ms per mode " + " / ".join(f"{x:.4f}" for x in ms)
+          + "; longest segment per mode, padded / prepared: "
+          + ", ".join(f"{a} / {b}" for a, b in longest) + f" on {card}")
+    local.close()
     return time.perf_counter() - start
 
 
@@ -1312,13 +1752,23 @@ def main() -> int:
         del hseg, wdec, rdec, sdec, bdec
 
         # --- 14. the front door: the CLI, Session, trace, serve ----------
-        front_s = front_door(torch, work, path, cache, ing, t,
-                             sample_inds, card, none, zero_counts,
-                             read_counts, check_against_segment,
-                             check_tucker)
+        front_s, ssess = front_door(torch, work, path, cache, ing, t,
+                                    sample_inds, card, none, zero_counts,
+                                    read_counts, check_against_segment,
+                                    check_tucker)
+
+        # --- 15. serving: graphs per bucket, the server, the daemons ------
+        serve_s = serving(torch, path, cache, ssess, sample_inds, card,
+                          none, zero_counts, read_counts)
+        ssess.close()
+        del ssess
+
+        # --- 16. the dist executor on a one-rank NCCL group ---------------
+        dist_s = distributed(torch, ing, card, none, zero_counts,
+                             read_counts, check_against_segment)
         del ing
 
-    # --- 15. results --------------------------------------------------------
+    # --- 17. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",
@@ -1351,6 +1801,8 @@ def main() -> int:
           "gram(impl='cuda'), ttmc, ttmc_lin and ttmc_off_sort in the Tucker "
           "fits of the same impls")
     print(f"[front] the front-door phase ran {front_s:.1f} s on {card}")
+    print(f"[serve] the serving phase ran {serve_s:.1f} s on {card}")
+    print(f"[dist] the distributed phase ran {dist_s:.1f} s on {card}")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -11,14 +11,16 @@
     python -m repro_torch trace   artifacts/trace   # Table-III breakdown
     python -m repro_torch metrics artifacts/trace   # metrics table
     python -m repro_torch fit     --dataset yelp --trace-dir t --http-port 9100
+    python -m repro_torch serve-daemon --source data.tnsb --port 8080
+    torchrun --nproc-per-node N python -m repro_torch fit --executor dist ...
 
 Every subcommand builds one RunConfig (``--config file.json`` loads a base;
 explicit flags override it field by field) and drives a
 :class:`~repro_torch.api.Session`.  The same argv gives the same RunConfig
 as ``python -m repro``.  ``--device`` (default: the CUDA card) is the
 Session's, not the config's; ``--device cpu`` runs on the CPU.  The JAX
-package's ``serve-daemon``, ``ratchet`` and ``dryrun`` subcommands come
-with the serving daemon, the port's benchmarks and its dry-run tooling.
+package's ``ratchet`` and ``dryrun`` subcommands come with the port's
+benchmarks and its dry-run tooling.
 """
 from __future__ import annotations
 
@@ -149,7 +151,7 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                         "crash dumps / events.jsonl; default 1024)")
     g = p.add_argument_group("serve")
     g.add_argument("--port", type=int, default=None, metavar="PORT",
-                   help="serving daemon HTTP port (0 = ephemeral)")
+                   help="serve-daemon HTTP port (0 = ephemeral)")
     g.add_argument("--tenants", nargs="+", default=None, metavar="ID",
                    help="tenant ids to publish the fit under "
                         "(default: default)")
@@ -364,6 +366,33 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_serve_daemon(args) -> int:
+    """Fit (or load) the configured decomposition, publish it under every
+    ``serve.tenants`` id, and serve the HTTP query API until
+    ``POST /v1/shutdown`` (or ``--duration-s``)."""
+    from repro_torch.serve import ServeDaemon
+
+    cfg, sess = _session(args)
+    print(f"# serve-daemon: {cfg.summary()}")
+    try:
+        server = sess.decomp_server()  # fit + publish cfg.serve.tenants
+        daemon = ServeDaemon(server, port=cfg.serve.port or 0).start()
+        print(f"# serving {list(cfg.serve.tenants)} at {daemon.url}  "
+              f"(GET /healthz /metrics /v1/tenants "
+              f"/v1/top_k?tenant=&user=&k=; POST /v1/values_at "
+              f"/v1/shutdown)", flush=True)
+        try:
+            daemon.serve_until_shutdown(duration_s=args.duration_s)
+        finally:
+            daemon.stop()
+        stats = server.stats()
+        print(f"# shutdown: {stats['batches_executed']} batches executed, "
+              f"queue depth {stats['queue_depth']}")
+    finally:
+        sess.close()
+    return 0
+
+
 def cmd_trace(args) -> int:
     """Table-III-style per-routine breakdown of a recorded trace dir."""
     from repro_torch.obs.report import trace_report
@@ -430,6 +459,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             p.add_argument("--queries", type=int, default=2048)
             p.add_argument("--batch", type=int, default=256)
         p.set_defaults(fn=fn)
+
+    p = sub.add_parser(
+        "serve-daemon",
+        help="fit, publish under serve.tenants, and serve the HTTP query "
+             "API (repro_torch.serve.DecompServer) until POST /v1/shutdown")
+    _add_config_args(p)
+    _add_device_arg(p)
+    p.add_argument("--duration-s", type=float, default=None, metavar="S",
+                   help="exit after S seconds even without /v1/shutdown")
+    p.set_defaults(fn=cmd_serve_daemon)
 
     p = sub.add_parser(
         "trace",

@@ -263,9 +263,9 @@ class ExecConfig:
     registry).
 
     ``executor``: ``"local"`` (single-process ``methods.fit``), ``"dist"``
-    (the distributed driver; registered so configs validate as in the JAX
-    package, but no port method declares the capability yet), or
-    ``"streaming"`` (chunked folds from an ``ingest.reader`` chunk source).
+    (``core.distributed.dist_cp_als`` over a ``torch.distributed`` rank
+    grid), or ``"streaming"`` (chunked folds from an ``ingest.reader``
+    chunk source).
     ``mesh_shape``/``multi_pod``/``shard_c``/``mode_order`` belong to the
     dist executor.  ``monitor*`` configure the per-iteration
     :class:`repro_torch.dist.StragglerMonitor`; ``checkpoint_dir``/``_every``
@@ -383,15 +383,14 @@ class ObsConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The serving layer: continuous batching + tenancy (the section of the
-    JAX package's ``repro.serve``; the port's batching server comes with its
-    serving daemon, so only the shared schema is validated here).
+    """The serving layer: continuous batching + tenancy
+    (``repro_torch.serve``, ``Session.decomp_server``, ``serve-daemon``).
 
     ``buckets`` are the padded batch sizes the worker coalesces into
-    (strictly increasing; each bucket shape jits exactly once, and
-    anything larger than the last bucket is chunked).  ``max_wait_ms`` is
-    the coalescing window measured from the first request in a batch —
-    the latency a caller trades for batch fill.  ``workers`` is the
+    (strictly increasing; each bucket shape is captured exactly once, as
+    a CUDA graph on the card, and anything larger than the last bucket is
+    chunked).  ``max_wait_ms`` is the coalescing window measured from the
+    first request in a batch: the latency a caller trades for batch fill.  ``workers`` is the
     number of batch-executing threads.  ``tenants`` names the models
     ``serve-daemon`` publishes from the session's fit; ``max_resident_mb``
     is the registry's LRU eviction budget over all resident models.

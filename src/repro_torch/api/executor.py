@@ -11,10 +11,9 @@ with the same capability listing.
 Each executor's ``fn`` consumes a :class:`~repro_torch.api.session.Session`
 (the stage cache: ingested tensor, plan, checkpoint state) and returns a
 decomposition with ``factors`` / ``fit`` / ``values_at``, the surface
-``Session.serve_handle`` builds on.  ``dist`` is registered with the
-reference's capability flag, so a configuration validates the same way in
-both packages; no port method declares ``supports_dist`` yet, so the gate
-refuses every method under it.
+``Session.serve_handle`` builds on.  ``dist`` runs
+``repro_torch.core.distributed.dist_cp_als`` over the session's rank grid
+(``Session.mesh``, a ``torch.distributed`` process group).
 """
 from __future__ import annotations
 
@@ -159,13 +158,69 @@ def _run_local(session):
 
 
 def _run_dist(session):
-    """The distributed driver: not ported yet (ROADMAP.md queue 1, item 8,
-    ``core/distributed.py`` over ``torch.distributed``).  The capability
-    gate refuses every port method before this runs."""
-    require_capability(session.cfg.method.name, "dist")
-    raise NotImplementedError(
-        "the dist executor is not ported yet (ROADMAP.md queue 1, item 8: "
-        "core/distributed.py over torch.distributed); use executor='local'")
+    """The medium-grained distributed driver (``core.distributed``) over
+    the session's rank grid."""
+    from repro_torch.core.cpals import CPDecomp
+    from repro_torch.core.distributed import dist_cp_als
+
+    cfg = session.cfg
+    require_capability(cfg.method.name, "dist")
+    if cfg.exec.checkpoint_dir is not None:
+        raise ValueError(
+            "exec.checkpoint_dir: the dist executor's iteration body has no "
+            "mid-fit checkpoint hook; checkpoint/resume needs executor="
+            "'local' or 'streaming'")
+    if cfg.method.tol > 0.0:
+        raise ValueError(
+            "method.tol: the dist executor's iteration body runs a fixed "
+            "iteration count (no early-stop hook); drop tol or use "
+            "executor='local'")
+    # dist_cp_als has no **kwargs sink: reject foreign method options with
+    # the field path instead of letting a raw TypeError escape.  The
+    # options are all the config adds to the keywords composed below.
+    supported = {"niters", "generator", "monitor", "verbose", "init"}
+    bad = sorted(set(cfg.method.options) - supported)
+    if bad:
+        raise ValueError(
+            f"method.options: {bad} not supported by the dist executor "
+            f"(dist_cp_als accepts only {sorted(supported)} from the "
+            "method section)")
+    # the grid first: under torchrun it puts this rank on its own card
+    # before the tensor and the generator are made there
+    mesh = session.mesh()
+    kw = _method_kwargs(session)
+    # the iteration body owns its loop: no mid-fit state/tol hooks
+    # (state/checkpoint_cb are None here: checkpoint_dir was rejected
+    # above, and tol > 0 too; tol = 0.0 is the default)
+    for unsupported in ("state", "checkpoint_cb", "tol"):
+        kw.pop(unsupported, None)
+    factors, lam, fit = dist_cp_als(
+        session.ingest(), cfg.method.rank, mesh,
+        shard_c=cfg.exec.shard_c, mode_order=cfg.exec.mode_order,
+        plan=session.plan(), method=cfg.method.name, **kw)
+    _emit_host_metrics(session)
+    return CPDecomp(factors=tuple(factors), lmbda=lam, fit=fit)
+
+
+def _emit_host_metrics(session) -> None:
+    """Drop this process's registry snapshot (histogram windows included)
+    as ``metrics-<host>.json`` under ``obs.trace_dir``: the per-host half
+    of cross-host aggregation; ``Session.export_obs`` folds every such
+    file into ``metrics-aggregated.json``.  The host is keyed on the
+    ``torch.distributed`` rank."""
+    cfg = session.cfg
+    if not (cfg.obs.enabled and cfg.obs.trace_dir):
+        return
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.obs.aggregate import write_host_metrics
+    from repro_torch.obs.metrics import get_registry
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    host = f"{socket.gethostname()}-p{rank}"
+    write_host_metrics(cfg.obs.trace_dir, host, registry=get_registry())
 
 
 def _run_streaming(session):
@@ -197,8 +252,7 @@ register_executor(ExecutorSpec(
     description="single-process methods.fit over the planned workspaces"))
 register_executor(ExecutorSpec(
     name="dist", fn=_run_dist, requires="supports_dist",
-    description="distributed CP-ALS over torch.distributed (not ported: "
-                "no method declares the capability)"))
+    description="medium-grained CP-ALS over a torch.distributed rank grid"))
 register_executor(ExecutorSpec(
     name="streaming", fn=_run_streaming, requires="supports_streaming",
     description="chunked MTTKRP folds from an ingest.reader chunk source"))

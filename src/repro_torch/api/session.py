@@ -10,6 +10,7 @@
     plan   = sess.plan()          # per-mode DecompPlan (None for streaming)
     dec    = sess.fit()           # decomposition via the configured executor
     handle = sess.serve_handle()  # batched values_at / top-k queries
+    server = sess.decomp_server() # batching multi-tenant server
 
 Stages are lazy and cached: each runs at most once per session, later
 stages trigger earlier ones, and ``repro_torch.api.run(cfg)`` is the
@@ -22,8 +23,9 @@ config resumes from the latest complete step.
 The device is the session's, not the config's (the configuration schema
 is shared with the JAX package): ``device=None`` means the CUDA card, and
 raises without one, unless an in-memory tensor is handed in, which keeps
-its own device.  The JAX package's ``decomp_server`` comes with the
-serving daemon.
+its own device.  The ``dist`` executor runs on ``Session.mesh()``, a rank
+grid over a ``torch.distributed`` process group: NCCL for a CUDA session,
+gloo for a CPU one.
 """
 from __future__ import annotations
 
@@ -180,6 +182,9 @@ class Session:
         self._plan_done = False
         self._result = None
         self._handle = None
+        self._server = None
+        self._mesh = None
+        self._own_group = False
         self._monitor = None
         self._ckpt_mgr = None
         self._resume_state = None
@@ -269,9 +274,20 @@ class Session:
                 info_fn=lambda: {"stage": self._stage_name}).start()
 
     def close(self):
-        """Stop the live surfaces (the heartbeat flushes a final snapshot;
-        the exposition socket closes).  Idempotent; both threads are
-        daemons, so an unclosed session still exits cleanly."""
+        """Drain and stop the decomposition server, stop the live surfaces
+        (the heartbeat flushes a final snapshot; the exposition socket
+        closes), and end the process group if this session started it.
+        Idempotent; the threads are daemons, so an unclosed session still
+        exits cleanly."""
+        if self._server is not None:
+            self._server.close()
+            self._server = None
+        if self._own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            self._own_group = False
+            self._mesh = None
         if self._heartbeat is not None:
             self._heartbeat.stop()
             self._heartbeat = None
@@ -417,6 +433,24 @@ class Session:
             self._plan, self._plan_done = None, True
             return None
         ing = self.ingest()
+        allow = cfg.plan.allow
+        if cfg.exec.executor == "dist":
+            # restrict candidates to what the iteration body expresses: the
+            # ONE set core.distributed declares, not a private copy; an
+            # allow entry the body cannot express is rejected, never
+            # silently filtered (the user believed it was a candidate)
+            from repro_torch.core.distributed import DIST_IMPLS
+
+            inexpressible = tuple(a for a in (allow or ())
+                                  if a not in DIST_IMPLS)
+            if inexpressible:
+                from .config import ConfigError
+
+                raise ConfigError(
+                    f"plan.allow: {inexpressible} cannot execute under the "
+                    f"dist executor; the iteration body expresses only "
+                    f"{DIST_IMPLS}")
+            allow = allow or DIST_IMPLS
         factor_ranks = None
         if spec.kernel == "ttmc":
             from repro_torch.methods.tucker_hooi import (_kron_widths,
@@ -430,7 +464,7 @@ class Session:
             self._plan = ing.plan(cfg.plan.policy, rank=rank,
                                   kernel=spec.kernel,
                                   backend=cfg.plan.backend,
-                                  allow=cfg.plan.allow,
+                                  allow=allow,
                                   calibrate=cfg.plan.calibrate,
                                   factor_ranks=factor_ranks,
                                   recalibrate=cfg.plan.recalibrate)
@@ -514,6 +548,23 @@ class Session:
                                        tracer=self.tracer())
         return self._handle
 
+    def decomp_server(self):
+        """The continuous-batching multi-tenant server
+        (:class:`repro_torch.serve.DecompServer`, cached), configured from
+        the ``serve`` section with this session's fit published under every
+        ``serve.tenants`` id.  Runs fit if needed; ``close()`` drains and
+        stops it."""
+        if self._server is None:
+            from repro_torch.serve import DecompServer
+
+            handle = self.serve_handle()  # fit + original-label dims
+            self._server = DecompServer.from_config(self.cfg.serve)
+            self._stage_name = "serve"
+            for tenant in self.cfg.serve.tenants:
+                self._server.publish(tenant, handle.decomp, handle.dims)
+            self._start_live()
+        return self._server
+
     # -- executor plumbing (consumed by repro_torch.api.executor) ----------
     def method_generator(self) -> torch.Generator:
         """The factor-init generator: a fresh ``torch.Generator`` on the
@@ -523,6 +574,36 @@ class Session:
         cached key is immutable; a cached generator would not be)."""
         return torch.Generator(device=self.device).manual_seed(
             int(self.cfg.method.seed))
+
+    def mesh(self):
+        """The dist executor's rank grid (cached): ``exec.mesh_shape``
+        verbatim, else every rank of the world on the 'data' axis.  It
+        lives on the process group that exists; else, under ``torchrun``,
+        one set up from the environment; else a one-rank group this session
+        starts (and ``close()`` ends): NCCL for a CUDA session, gloo for a
+        CPU one.  ``exec.multi_pod`` without ``mesh_shape`` asks for the
+        reference's production pod mesh, which belongs to the LM substrate
+        (ROADMAP.md queue 1, item 10), and raises."""
+        if self._mesh is None:
+            import torch.distributed as dist
+
+            from repro_torch.dist.collectives import (init_process_group_for,
+                                                      make_mesh)
+
+            shape = self.cfg.exec.mesh_shape
+            if shape is None and self.cfg.exec.multi_pod:
+                from .config import ConfigError
+
+                raise ConfigError(
+                    "exec.multi_pod: the production pod mesh is part of the "
+                    "LM substrate, not ported (ROADMAP.md queue 1, item "
+                    "10); give exec.mesh_shape, e.g. {'pod': 2, 'data': 2, "
+                    "'model': 1}")
+            self._own_group = init_process_group_for(self.device)
+            if shape is None:
+                shape = {"data": dist.get_world_size(), "model": 1}
+            self._mesh = make_mesh(tuple(shape.values()), tuple(shape))
+        return self._mesh
 
     def monitor(self):
         """The per-iteration StragglerMonitor, when configured."""

@@ -14,9 +14,8 @@ consecutive :meth:`StragglerMonitor.check` calls.  The median makes the
 baseline robust to the stragglers themselves; the patience counter
 debounces one-off hiccups (GC pauses, checkpoint writes).
 
-The single-process drivers feed it through :func:`record_step_times` as
-host 0; exchanging step times across processes comes with the
-distributed executor.
+The drivers feed it through :func:`record_step_times`, which exchanges
+the step times across the ranks of a ``torch.distributed`` run.
 """
 from __future__ import annotations
 
@@ -108,6 +107,26 @@ class StragglerMonitor:
 
 
 def record_step_times(monitor: StragglerMonitor, seconds: float) -> None:
-    """Record one step's wall time for this process, host 0 (the port's
-    drivers are single-process)."""
-    monitor.record(0, float(seconds))
+    """Record one step's wall time under EVERY participating rank.
+
+    Detection is relative, so each process's monitor needs its peers'
+    times: with several ranks in the ``torch.distributed`` world this
+    all-gathers the local wall time (every rank then holds the full picture
+    and flags the same hosts), on the card under NCCL; a single process
+    records host 0.  Every rank must call it at the same step."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+        mine = torch.tensor([float(seconds)], dtype=torch.float32,
+                            device=device)
+        times = mine.new_empty((dist.get_world_size(),))
+        from .collectives import _all_gather
+
+        _all_gather(times, mine, None)
+        for host, t in enumerate(times.cpu().tolist()):
+            monitor.record(host, float(t))
+    else:
+        monitor.record(0, float(seconds))

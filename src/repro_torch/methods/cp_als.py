@@ -229,7 +229,7 @@ register_method(MethodSpec(
     fn=cp_als,
     family="cp",
     kernel="mttkrp",
-    supports_dist=False,
+    supports_dist=True,
     supports_streaming=False,
     nonnegative=False,
     supports_order_gt3=True,

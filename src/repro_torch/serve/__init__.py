@@ -1,14 +1,25 @@
-"""repro_torch.serve: the serving query vocabulary (counterpart of
-``repro.serve``).
+"""repro_torch.serve: continuous-batching, multi-tenant decomposition
+serving (counterpart of ``repro.serve``).
+
+Fitted CP/Tucker decompositions become queryable models behind a batching
+server.
 
     queries.py   query vocabulary (values_at, top_k) + bucketed padding
-
-The multi-tenant registry, the request queue and the batching server
-(``registry.py``, ``queue.py``, ``server.py``) come with the serving
-daemon.
+    registry.py  multi-tenant residency: a CUDA graph per bucket on the
+                 card, hot-swap, LRU byte-budget eviction
+    queue.py     request queue + coalescing worker threads (futures out)
+    server.py    DecompServer front door + ServeDaemon HTTP frontend
 """
-from .queries import (bucket_for, make_score_fn, make_top_k_fn, pad_rows,
-                      resident_bytes)
+from .queries import (QUERY_KINDS, bucket_for, make_score_fn, make_top_k_fn,
+                      pad_rows, resident_bytes)
+from .queue import BatchQueue
+from .registry import DEFAULT_BUCKETS, ModelRegistry, TenantEntry, TenantModel
+from .server import DecompServer, ServeDaemon
 
-__all__ = ["bucket_for", "pad_rows", "make_score_fn", "make_top_k_fn",
-           "resident_bytes"]
+__all__ = [
+    "QUERY_KINDS", "DEFAULT_BUCKETS",
+    "bucket_for", "pad_rows", "make_score_fn", "make_top_k_fn",
+    "resident_bytes",
+    "ModelRegistry", "TenantModel", "TenantEntry",
+    "BatchQueue", "DecompServer", "ServeDaemon",
+]

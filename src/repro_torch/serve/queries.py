@@ -35,6 +35,8 @@ import torch
 
 Tensor = torch.Tensor
 
+QUERY_KINDS = ("values_at", "top_k")
+
 
 # ---------------------------------------------------------------------------
 # bucketed padding

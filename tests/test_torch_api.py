@@ -200,10 +200,18 @@ def test_executor_registry_covers_the_split():
 @pytest.mark.parametrize("method", ["cp_als", "cp_nn_hals", "tucker_hooi",
                                     "cp_als_streaming"])
 def test_dist_executor_refuses_every_port_method(method):
-    """No port method declares supports_dist: the gate refuses with the
-    reference's text, at RunConfig construction too."""
+    """Only cp_als declares supports_dist, as in the reference: the gate
+    accepts it and refuses every other method with the reference's text
+    and listing, at RunConfig construction too."""
+    if method == "cp_als":
+        assert require_capability(method, "dist").supports_dist
+        RunConfig(method=MethodConfig(name=method),
+                  exec=ExecConfig(executor="dist"))
+        japi.require_capability(method, "dist")
+        return
     with pytest.raises(ValueError, match=r"supports_dist=False\); "
-                                         r"dist-capable methods: \(\)"):
+                                         r"dist-capable methods: "
+                                         r"\('cp_als',\)"):
         require_capability(method, "dist")
     with pytest.raises(ValueError, match="supports_dist"):
         RunConfig(method=MethodConfig(name=method), exec=ExecConfig(
@@ -653,6 +661,7 @@ def test_imports_leave_no_jax_or_reference_and_main_runs():
     code = ("import sys, runpy\n"
             "import repro_torch.api, repro_torch.obs, repro_torch.utils\n"
             "import repro_torch.serve, repro_torch.dist\n"
+            "import repro_torch.serve.server, repro_torch.core.distributed\n"
             "sys.argv = ['repro_torch', '--list-methods']\n"
             "try:\n"
             "    runpy.run_module('repro_torch', run_name='__main__')\n"

@@ -1116,3 +1116,159 @@ def test_serve_handle_benchmark_on_card(cuda):
     assert all(math.isfinite(lat[k]) for k in ("mean", "p50", "p99"))
     got = handle.query(t.inds[:1000])
     assert got.device.type == "cuda" and torch.isfinite(got).all()
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: a CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+def _card_cp(cuda, dims=(300, 200, 400), rank=8, seed=71):
+    from repro_torch.core.cpals import CPDecomp
+
+    rng = np.random.default_rng(seed)
+    return CPDecomp(factors=tuple(
+        torch.from_numpy(rng.uniform(0, 1, (d, rank)).astype(np.float32))
+        .to(cuda) for d in dims),
+        lmbda=torch.from_numpy(rng.uniform(0.5, 2, rank).astype(np.float32))
+        .to(cuda), fit=torch.tensor(0.5))
+
+
+def _coords(dims, n, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, d, n) for d in dims],
+                    -1).astype(np.int32)
+
+
+@pytest.mark.cuda
+def test_graph_results_equal_eager_results_on_card(cuda):
+    """A graph replay computes what the same calls compute eagerly: the
+    same kernels on the same inputs, so the values are equal bit for bit
+    and the top-k items too."""
+    from repro_torch.serve import TenantModel, make_top_k_fn
+
+    dec = _card_cp(cuda)
+    model = TenantModel(dec, (300, 200, 400), buckets=(16, 64))
+    coords = _coords((300, 200, 400), 64, 1)
+    got = model.values_at(coords)
+    want = dec.values_at(torch.from_numpy(coords).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    scores, items = model.top_k(np.arange(16), 7)
+    ws, wi = make_top_k_fn(dec)(torch.arange(16, device=cuda), 7)
+    np.testing.assert_array_equal(items, wi.cpu().numpy())
+    np.testing.assert_array_equal(scores, ws.cpu().numpy())
+    assert model.variant_keys == (("values_at", 64), ("top_k", 16, 7))
+
+
+@pytest.mark.cuda
+def test_captures_once_per_bucket_under_8_client_threads(cuda):
+    """8 threads of mixed values_at / top_k on one server with 2 workers:
+    every answer right, and one capture per bucket and per (bucket, k)."""
+    import threading
+
+    from repro_torch.serve import DecompServer
+
+    dec = _card_cp(cuda)
+    dims = (300, 200, 400)
+    want_all = dec.values_at(
+        torch.from_numpy(_coords(dims, 4096, 2)).to(cuda)).cpu().numpy()
+    coords_all = _coords(dims, 4096, 2)
+    errors = []
+    with DecompServer(buckets=(16, 64, 256), max_wait_ms=1.0,
+                      workers=2) as srv:
+        srv.publish("t", dec, dims)
+
+        def client(seed):
+            rng = np.random.default_rng(seed)
+            try:
+                for _ in range(40):
+                    if rng.random() < 0.6:
+                        idx = rng.integers(0, 4096, rng.integers(1, 300))
+                        got = srv.values_at("t", coords_all[idx])
+                        np.testing.assert_allclose(got, want_all[idx],
+                                                   rtol=1e-6, atol=1e-6)
+                    else:
+                        users = rng.integers(0, 300, rng.integers(1, 40))
+                        scores, items = srv.top_k("t", users, k=5)
+                        assert items.shape == (users.size, 5)
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not errors, errors
+        model = srv.registry.get("t").model
+        keys = model.variant_keys
+        assert len(keys) == len(set(keys))
+        assert model.compile_count["values_at"] <= 3
+        assert model.compile_count["top_k"] <= 3
+
+
+@pytest.mark.cuda
+def test_republish_mid_load_fails_no_future_on_card(cuda):
+    import threading
+    import time as _time
+
+    from repro_torch.serve import DecompServer
+
+    dims = (300, 200, 400)
+    a, b = _card_cp(cuda, seed=71), _card_cp(cuda, seed=72)
+    coords = _coords(dims, 5, 3)
+    want = [d.values_at(torch.from_numpy(coords).to(cuda)).cpu().numpy()
+            for d in (a, b)]
+    futs = []
+    with DecompServer(buckets=(4, 16), max_wait_ms=1.0, workers=2) as srv:
+        srv.publish("t", a, dims)
+        stop = threading.Event()
+
+        def client():
+            while not stop.is_set():
+                futs.append(srv.submit_values_at("t", coords))
+                _time.sleep(0.001)
+
+        threads = [threading.Thread(target=client) for _ in range(3)]
+        for th in threads:
+            th.start()
+        for d in (b, a, b):
+            _time.sleep(0.05)
+            srv.publish("t", d, dims)
+        _time.sleep(0.05)
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+    assert len(futs) > 0
+    for f in futs:
+        got = f.result(timeout=30)
+        assert any(np.array_equal(got, w) for w in want)
+
+
+@pytest.mark.cuda
+def test_dist_cp_als_at_world_size_1_on_nccl(cuda):
+    """The dist executor on the card: a one-rank NCCL group the Session
+    starts and ends; the fit equals the local segment fit from the same
+    generator, and no hand-written kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.api import (ExecConfig, MethodConfig, PlanConfig,
+                                 RunConfig, Session)
+
+    t = random_sparse((300, 200, 400), 20_000, 65, skew=1.5, device=cuda)
+    local = Session(RunConfig(method=MethodConfig(rank=8, niters=6),
+                              plan=PlanConfig("segment")), tensor=t).fit()
+    before = mttkrp_cuda.mttkrp.launches
+    with Session(RunConfig(method=MethodConfig(rank=8, niters=6),
+                           exec=ExecConfig(executor="dist")),
+                 tensor=t) as sess:
+        dec = sess.fit()
+        assert dist.get_backend() == "nccl"
+        assert sess.mesh().shape == {"data": 1, "model": 1}
+        assert set(sess.plan().impls) <= {"gather_scatter", "segment"}
+    assert not dist.is_initialized()
+    assert mttkrp_cuda.mttkrp.launches == before
+    assert all(a.device.type == "cuda" for a in dec.factors)
+    assert abs(float(dec.fit) - float(local.fit)) < 1e-5
+    for a, b in zip(dec.factors, local.factors):
+        assert float((a - b).norm() / b.norm()) < 1e-2

@@ -55,8 +55,8 @@ def test_all_four_methods_registered():
 
 
 def test_available_methods_filters():
-    # the distributed capability is not ported: no method declares it
-    assert available_methods(dist=True) == ()
+    # cp_als is the one method the distributed driver runs
+    assert available_methods(dist=True) == ("cp_als",)
     assert available_methods(streaming=True) == ("cp_als_streaming",)
     assert available_methods(nonnegative=True) == ("cp_nn_hals",)
     assert available_methods(family="tucker") == ("tucker_hooi",)
