@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint,
-streaming, front-door, serving and distributed paths on one CUDA card and
-check them.
+streaming, front-door, serving, distributed, launcher and LM serving paths
+on one CUDA card and check them.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -171,7 +171,33 @@ Phases; any failure raises and exits non-zero:
    ``segment`` sorted once), and the ``segment`` reduction of the block as
    partitioned (padding kept) that sorts on every call, timed a mode,
    with the longest segment of each mode with and without the padding.
-17. One JSON line of kernel numbers, then, as the last line,
+17. The decomposition launcher: ``repro_torch.launch.serve.serve_cpd(
+   "cpals-yelp", smoke=False, rank=16, niters=10, policy="cuda",
+   cache=<temporary directory>)`` (the full-scale replica drawn on the
+   card, a cold ingest into the cache, the plan report, the fit, and
+   ``ServeHandle.benchmark`` of 2^20 queries in batches of 4096), the
+   counts set to 0 just before: K1 launches 3 modes x 10 = 30 times and
+   nothing else; then ``policy="segment"`` on the same cache: a cache hit
+   that builds no CSF and no linearized workspace, no launch, and a fit
+   within 1e-5 of the ``cuda`` one (lambda and factors within a relative
+   3e-2, as in phase 5).  Ingest, decompose and serve seconds, values/s and
+   p50/p99 print for both.
+18. LM serving at the full published width of llama3.2-3b (3.2 B
+   parameters, drawn on the card from the seed): in float32, one decode
+   step after a 64-token prefill (batch 2) against the forward pass over
+   the 65 tokens, within the reference's decode limits (rtol 1e-2, atol
+   2e-2); in bfloat16, layer 0's attention at prompt 4096, batch 1:
+   ``_flash_attention`` against ``_sdpa`` under the causal mask within
+   rtol 2e-2, atol 2e-2 (the two round the scores to bfloat16 at different
+   steps, so outputs near 4 differ by a bfloat16 ulp), both timed; ``serve("llama3.2-3b", batch=4, gen=32)`` at prompt
+   4096 (the flash path) and 512 (the sdpa path), twice each, every logit
+   finite: prefill and decode seconds, decode tokens/s, the step time
+   beside the HBM bound of reading every weight and the cache once, and the
+   peak memory; 4 decode steps at prompt 512 under ``torch.profiler``:
+   kernels a step and their device time against the wall; and ``smoke_of(llama3.2-3b)`` in float32 with the same
+   parameters on the card and the CPU: logits within 1e-4 and the same
+   greedy tokens.  This path reaches no hand-written kernel.
+19. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -204,6 +230,14 @@ SERVE_WORKERS = 2
 SERVE_CLIENTS = 8
 SERVE_LOAD_S = 4.0
 TOP_K = 10
+LAUNCH_RANK = 16
+LAUNCH_NITERS = 10
+LAUNCH_BATCH = 4096
+LAUNCH_QUERIES = 1 << 20
+LM_ARCH = "llama3.2-3b"
+LM_BATCH = 4
+LM_GEN = 32
+LM_PROFILE_STEPS = 4
 # NVIDIA H100 SXM data sheet (dense, no sparsity) at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -1021,6 +1055,232 @@ def distributed(torch, ing, card: str, none: dict, zero_counts, read_counts,
     return time.perf_counter() - start
 
 
+def launcher(torch, dev, card: str, none: dict, zero_counts, read_counts,
+             check_against_segment) -> float:
+    """Phase 17: the decomposition launcher, ``serve_cpd`` on full-scale
+    yelp (see the module docstring).  Returns the phase's seconds."""
+    import repro_torch.core.csf as csf_mod
+    import repro_torch.core.linearized as lin_mod
+    from repro_torch.launch.serve import serve_cpd
+
+    start = time.perf_counter()
+    builds = {"build_csf": 0, "build_linearized": 0}
+    real_builds = {"build_csf": csf_mod.build_csf,
+                   "build_linearized": lin_mod.build_linearized}
+
+    def counted_build(name):
+        def build(*a, **k):
+            builds[name] += 1
+            return real_builds[name](*a, **k)
+        return build
+
+    outs = {}
+    with tempfile.TemporaryDirectory(prefix="launch-") as cache:
+        csf_mod.build_csf = counted_build("build_csf")
+        lin_mod.build_linearized = counted_build("build_linearized")
+        try:
+            for policy in ("cuda", "segment"):
+                builds.update(dict.fromkeys(builds, 0))
+                zero_counts()
+                t0 = time.perf_counter()
+                out = serve_cpd("cpals-yelp", smoke=False,
+                                batch=LAUNCH_BATCH, queries=LAUNCH_QUERIES,
+                                rank=LAUNCH_RANK, niters=LAUNCH_NITERS,
+                                policy=policy, cache=cache, device=dev)
+                wall = time.perf_counter() - t0
+                outs[policy] = (out, read_counts(), dict(builds))
+                lat = out["latency_ms"]
+                print(f"[launch] serve_cpd policy={policy} plan "
+                      f"{out['plan']} fit={out['fit']:.7f} ingest_s="
+                      f"{out['ingest_s']:.4f} (cache_hit={out['cache_hit']},"
+                      f" builds {builds}) decompose_s="
+                      f"{out['decompose_s']:.4f} serve_s={out['serve_s']:.4f}"
+                      f" ({out['qps']:.0f} values/s over {LAUNCH_QUERIES} "
+                      f"queries in batches of {LAUNCH_BATCH}, p50 "
+                      f"{lat['p50']:.4f} ms p99 {lat['p99']:.4f} ms) "
+                      f"wall_s={wall:.4f} launches={read_counts()} on {card}")
+        finally:
+            csf_mod.build_csf = real_builds["build_csf"]
+            lin_mod.build_linearized = real_builds["build_linearized"]
+    (kout, kcounts, _), (sout, scounts, sbuilds) = outs["cuda"], outs["segment"]
+    if kcounts != dict(none, mttkrp=3 * LAUNCH_NITERS) or scounts != none:
+        raise AssertionError(f"serve_cpd launches: cuda {kcounts}, segment "
+                             f"{scounts}")
+    if kout["cache_hit"] or not sout["cache_hit"] or any(sbuilds.values()):
+        raise AssertionError(f"serve_cpd ingest cache: cold hit "
+                             f"{kout['cache_hit']}, warm hit "
+                             f"{sout['cache_hit']}, warm builds {sbuilds}")
+    check_against_segment(kout["decomp"], "serve_cpd policy=cuda",
+                          want=sout["decomp"], tag="launch",
+                          against="serve_cpd policy=segment")
+    return time.perf_counter() - start
+
+
+def lm_serving(torch, dev, card: str, seed: int) -> float:
+    """Phase 18: LM serving at the full width of llama3.2-3b (see the module
+    docstring).  Returns the phase's seconds."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate, serve
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import tree_map
+
+    start = time.perf_counter()
+    cfg = configs.get(LM_ARCH)
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 18.2 first: decode against forward in float32 at full width
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model, draw_s = sync_time(lambda: Model(f32).init(
+        torch.Generator(device=dev).manual_seed(seed), dev))
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[lm] {LM_ARCH} float32 at full width: {cfg.param_count()} "
+          f"parameters ({nbytes / 1e9:.3f} GB) drawn on the card in "
+          f"{draw_s:.4f} s on {card}")
+    rng = np.random.default_rng(seed)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 65), dtype=np.int32),
+                          device=dev)
+    with torch.no_grad():
+        full, fwd_s = sync_time(lambda: model({"tokens": tok})[0][:, -1])
+    cache = model.init_cache(2, 65)
+    _, pre_s = sync_time(lambda: model.prefill({"tokens": tok[:, :64]},
+                                               cache))
+    (got, _), dec_s = sync_time(lambda: model.decode_step(tok[:, 64:], cache,
+                                                         64))
+    err = max_err(torch, got[:, 0], full, rtol=1e-2, atol=2e-2,
+                  what="decode step vs forward (float32, full width)")
+    print(f"[lm] decode vs forward, float32, batch 2, prompt 64 + 1: max "
+          f"|diff| {err:.3e} (limits rtol 1e-2, atol 2e-2); forward over 65 "
+          f"tokens {fwd_s:.4f} s, prefill 64 {pre_s:.4f} s, decode step "
+          f"{dec_s:.4f} s on {card}")
+
+    # 18.1: one layer's attention at prompt 4096, batch 1, bfloat16
+    layer = tree_map(lambda a: a[0].to(cfg.cdtype),
+                     model.params()["stack"])["b0"]
+    del model, cache, full, got
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        x = torch.randn((1, 4096, cfg.d_model), generator=g, device=dev
+                        ).to(cfg.cdtype)
+        h = L.apply_norm(layer["n1"], cfg, x)
+        q = torch.einsum("bsd,dhk->bshk", h, layer["attn"]["wq"])
+        k = torch.einsum("bsd,dnk->bsnk", h, layer["attn"]["wk"])
+        v = torch.einsum("bsd,dnk->bsnk", h, layer["attn"]["wv"])
+        positions = torch.arange(4096, device=dev)[None]
+        q, k = L.apply_rope(cfg, q, k, positions)
+        mask = L._train_mask("causal", 4096, 0, dev)[None, None, None]
+        flash = L._flash_attention(cfg, q, k, v, "causal")
+        sdpa = L._sdpa(cfg, q, k, v, mask)
+        err = max_err(torch, flash, sdpa, rtol=2e-2, atol=2e-2,
+                      what="flash vs sdpa (bfloat16, prompt 4096)")
+        flash_ms = time_ms(torch, lambda: L._flash_attention(
+            cfg, q, k, v, "causal"), warmup=1, reps=5)
+        sdpa_ms = time_ms(torch, lambda: L._sdpa(cfg, q, k, v, mask),
+                          warmup=1, reps=5)
+    print(f"[lm] one layer's attention, batch 1, prompt 4096, bfloat16: "
+          f"flash vs sdpa max |diff| {err:.3e} (limits rtol 2e-2, atol "
+          f"2e-2: one bfloat16 ulp near 4 is 3.1e-2); flash "
+          f"{flash_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms on {card}")
+    del layer, x, h, q, k, v, mask, flash, sdpa
+    torch.cuda.empty_cache()
+
+    # 18.3: serve in the config's bfloat16, the flash then the sdpa path
+    kv_bytes_tok = (cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim
+                    * cfg.cdtype.itemsize)
+    param_bytes = cfg.param_count() * cfg.pdtype.itemsize
+    for prompt in (4096, 512):
+        for run in ("first", "second"):
+            torch.cuda.reset_peak_memory_stats()
+            out, wall = sync_time(lambda: serve(
+                LM_ARCH, smoke=False, batch=LM_BATCH, prompt_len=prompt,
+                gen=LM_GEN, seed=seed, device=dev))
+            finite = bool(torch.isfinite(out["logits"]).all())
+            step_ms = out["decode_s"] / (LM_GEN - 1) * 1e3
+            # least decode step: every weight and the cache read once
+            bound_ms = ((param_bytes + LM_BATCH * (prompt + LM_GEN)
+                         * kv_bytes_tok) / HBM_BYTES_PER_S * 1e3)
+            print(f"[lm] serve {LM_ARCH} bfloat16 batch {LM_BATCH} prompt "
+                  f"{prompt} gen {LM_GEN} ({run} call): prefill_s="
+                  f"{out['prefill_s']:.4f} decode_s={out['decode_s']:.4f} "
+                  f"({out['decode_tok_s']:.1f} tokens/s, {step_ms:.3f} ms a "
+                  f"step, HBM bound {bound_ms:.3f} ms) wall_s={wall:.4f} "
+                  f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+                  f"finite={finite} on {card}")
+            if not finite or out["tokens"].shape != (LM_BATCH, LM_GEN):
+                raise AssertionError(f"serve prompt {prompt}: non-finite "
+                                     f"logits or tokens of shape "
+                                     f"{out['tokens'].shape}")
+            del out
+            torch.cuda.empty_cache()
+
+    # where a decode step's time goes: its kernels' device time against its
+    # wall, and how many it launches (torch.profiler over a few steps)
+    from torch.profiler import ProfilerActivity, profile
+
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed), dev)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, 512),
+                                           dtype=np.int32), device=dev)
+    cache = model.init_cache(LM_BATCH, 512 + LM_PROFILE_STEPS + 1)
+    model.prefill({"tokens": prompts}, cache)
+    model.decode_step(prompts[:, -1:], cache, 512)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(LM_PROFILE_STEPS):
+            model.decode_step(prompts[:, -1:], cache, 513 + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(ev.count for ev in kernels) / LM_PROFILE_STEPS
+    device_ms = (sum(ev.device_time_total for ev in kernels) / 1e3
+                 / LM_PROFILE_STEPS)
+    wall_ms = wall * 1e3 / LM_PROFILE_STEPS
+    print(f"[lm] decode step under torch.profiler ({LM_PROFILE_STEPS} steps, "
+          f"batch {LM_BATCH}, cache {512 + LM_PROFILE_STEPS + 1}): "
+          f"{launches:.0f} kernels a step, device {device_ms:.3f} ms of "
+          f"{wall_ms:.3f} ms wall a step (busy share "
+          f"{device_ms / wall_ms:.3f}) on {card}")
+    del model, cache, prompts, prof
+    torch.cuda.empty_cache()
+
+    # 18.4: smoke_of in float32, the same parameters on the card and the CPU
+    scfg = configs.smoke_of(cfg)
+    cpu = Model(scfg).init(torch.Generator().manual_seed(seed), "cpu")
+    on_card = Model(scfg)
+    on_card.load_state_dict({k: v.to(dev) for k, v in
+                             cpu.state_dict().items()}, assign=True)
+    prompts = rng.integers(0, scfg.vocab, (2, 12), dtype=np.int32)
+    want = generate(cpu, {"tokens": torch.as_tensor(prompts)}, gen=8)
+    got = generate(on_card, {"tokens": torch.as_tensor(prompts, device=dev)},
+                   gen=8)
+    err = max_err(torch, got["logits"].cpu(), want["logits"], rtol=1e-4,
+                  atol=1e-4, what="smoke logits, card vs CPU")
+    same = bool((got["tokens"] == want["tokens"]).all())
+    print(f"[lm] {scfg.name} float32 prompt 12 gen 8: card vs CPU logits "
+          f"max |diff| {err:.3e} (limits rtol 1e-4, atol 1e-4), greedy "
+          f"tokens equal={same} "
+          f"on {card}")
+    if not same:
+        raise AssertionError("smoke greedy tokens differ between the card "
+                             "and the CPU")
+    return time.perf_counter() - start
+
+
 def main() -> int:
     start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1768,7 +2028,14 @@ def main() -> int:
                              read_counts, check_against_segment)
         del ing
 
-    # --- 17. results --------------------------------------------------------
+    # --- 17. the decomposition launcher: serve_cpd on full yelp -----------
+    launch_s = launcher(torch, dev, card, none, zero_counts, read_counts,
+                        check_against_segment)
+
+    # --- 18. LM serving: llama3.2-3b at full width ------------------------
+    lm_s = lm_serving(torch, dev, card, args.seed)
+
+    # --- 19. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",
@@ -1803,6 +2070,8 @@ def main() -> int:
     print(f"[front] the front-door phase ran {front_s:.1f} s on {card}")
     print(f"[serve] the serving phase ran {serve_s:.1f} s on {card}")
     print(f"[dist] the distributed phase ran {dist_s:.1f} s on {card}")
+    print(f"[launch] the launcher phase ran {launch_s:.1f} s on {card}")
+    print(f"[lm] the LM serving phase ran {lm_s:.1f} s on {card}")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

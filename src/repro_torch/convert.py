@@ -1,8 +1,8 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 The two packages draw different random numbers from the same seed, so a
-comparison hands both the same tensor, workspace and initial factors by
-value.  These helpers take numpy arrays (``np.asarray`` of the JAX
+comparison hands both the same tensor, workspace and initial factors (or an
+LM's parameters and cache) by value.  These helpers take numpy arrays (``np.asarray`` of the JAX
 package's arrays) and build the port's containers on ``device`` (the card
 when None); nothing here imports the JAX package.
 """
@@ -123,3 +123,74 @@ def relabeling_from_numpy(new_of_old, old_of_new, dims_old: Sequence[int],
         entry_perm=None if entry_perm is None else ids(entry_perm),
         linearized_mode=(None if linearized_mode is None
                          else int(linearized_mode)))
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate: parameter and cache trees
+# ---------------------------------------------------------------------------
+
+def _leaf_to_torch(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same 16 bits
+        return torch.from_numpy(np.array(a).view(np.uint16)
+                                ).view(torch.bfloat16).to(dev)
+    return torch.as_tensor(np.array(a), device=dev)
+
+
+def _flat_items(tree, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flat_items(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def lm_params_from_numpy(cfg, tree, device: DeviceLike = None) -> dict:
+    """The reference's parameter tree (nested dicts of numpy arrays) as the
+    port's ``Model(cfg).state_dict()``: keys are the leaf paths joined with
+    ``.``; every path and shape is checked against ``Model(cfg)``.  Load it
+    with ``model.load_state_dict(sd, assign=True)``."""
+    from repro_torch.models import Model
+
+    dev = resolve_device(device)
+    want = {k: tuple(v.shape) for k, v in Model(cfg).state_dict().items()}
+    sd = {k: _leaf_to_torch(v, dev) for k, v in _flat_items(tree)}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if got != want:
+        raise ValueError(f"{cfg.name}: parameter tree differs from the "
+                         f"port's: {sorted(set(got.items()) ^ set(want.items()))}")
+    return sd
+
+
+def lm_cache_from_numpy(tree, device: DeviceLike = None) -> dict:
+    """A decode cache (nested dicts of numpy arrays) as the port's nested
+    dicts of tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: lm_cache_from_numpy(v, dev) if isinstance(v, dict)
+            else _leaf_to_torch(v, dev) for k, v in tree.items()}
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bfloat16: widen exactly
+        t = t.float()
+    return t.numpy()
+
+
+def lm_params_to_numpy(model) -> dict:
+    """A port ``Model``'s parameters as the reference's nested tree of numpy
+    arrays (bfloat16 widened to float32)."""
+    out: dict = {}
+    for path, t in model.state_dict().items():
+        node = out
+        *inner, leaf = path.split(".")
+        for key in inner:
+            node = node.setdefault(key, {})
+        node[leaf] = _tensor_to_numpy(t)
+    return out
+
+
+def lm_cache_to_numpy(cache) -> dict:
+    """A port decode cache as nested dicts of numpy arrays."""
+    return {k: lm_cache_to_numpy(v) if isinstance(v, dict)
+            else _tensor_to_numpy(v) for k, v in cache.items()}

@@ -1272,3 +1272,93 @@ def test_dist_cp_als_at_world_size_1_on_nccl(cuda):
     assert abs(float(dec.fit) - float(local.fit)) < 1e-5
     for a, b in zip(dec.factors, local.factors):
         assert float((a - b).norm() / b.norm()) < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate and the launcher on the card (plain torch, no kernel but
+# K1 under serve_cpd)
+# ---------------------------------------------------------------------------
+
+def _smoke_llama(**over):
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.smoke_of(configs.get("llama3.2-3b")),
+                               **over)
+
+
+@pytest.mark.cuda
+def test_lm_smoke_on_card_matches_cpu(cuda):
+    """The same float32 smoke parameters on the card and the CPU: the greedy
+    loop's logits within 1e-4 and the same tokens."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+
+    cfg = _smoke_llama()
+    cpu = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    card = Model(cfg)
+    card.load_state_dict({k: v.to(cuda) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12),
+                                                dtype=np.int32)
+    want = generate(cpu, {"tokens": torch.as_tensor(prompts)}, gen=6)
+    got = generate(card, {"tokens": torch.as_tensor(prompts, device=cuda)},
+                   gen=6)
+    assert got["logits"].device.type == "cuda"
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["causal", "local"])
+def test_flash_matches_sdpa_on_card(cuda, kind):
+    """bfloat16, batch 2, 512 positions in blocks of 128, GQA g = 2."""
+    from repro_torch.models import layers as L
+
+    cfg = _smoke_llama(window=100)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 512, 4, 64), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, 512, 2, 64), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, 512, 2, 64), generator=g, device=cuda).bfloat16()
+    flash = L._flash_attention(cfg, q, k, v, kind, qb=128, kb=128)
+    mask = L._train_mask(kind, 512, 100, cuda)[None, None, None]
+    torch.testing.assert_close(flash.float(),
+                               L._sdpa(cfg, q, k, v, mask).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_decode_matches_forward_on_card(cuda):
+    """float32 smoke model on the card: prefill 12, one decode step, against
+    the forward over 13 tokens at the reference's limits."""
+    from repro_torch.models import Model
+
+    model = Model(_smoke_llama()).init(
+        torch.Generator(device=cuda).manual_seed(2), cuda)
+    tok = torch.randint(0, 512, (2, 13), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(3))
+    with torch.no_grad():
+        want = model({"tokens": tok})[0][:, -1]
+    cache = model.init_cache(2, 16)
+    model.prefill({"tokens": tok[:, :12]}, cache)
+    got, _ = model.decode_step(tok[:, 12:], cache, 12)
+    torch.testing.assert_close(got[:, 0], want, rtol=1e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_serve_cpd_on_card_launches_k1(cuda, tmp_path):
+    """``serve_cpd`` at smoke scale with ``policy="cuda"``: K1 launches 3
+    modes x 2 iterations; a ``segment`` relaunch hits the cache and fits
+    the same within 1e-5."""
+    from repro_torch.launch.serve import serve_cpd
+
+    kw = dict(smoke=True, batch=256, queries=1024, rank=8, niters=2,
+              cache=str(tmp_path), device=cuda)
+    before = mttkrp_cuda.mttkrp.launches
+    out = serve_cpd("cpals-yelp", policy="cuda", **kw)
+    assert mttkrp_cuda.mttkrp.launches == before + 6
+    seg = serve_cpd("cpals-yelp", policy="segment", **kw)
+    assert seg["cache_hit"] and not out["cache_hit"]
+    assert abs(out["fit"] - seg["fit"]) < 1e-5

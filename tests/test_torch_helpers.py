@@ -4,11 +4,16 @@
 The two packages draw different random numbers from one seed, so every
 input is made here with numpy and handed to both sides by value.
 """
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro import configs as jconfigs
 from repro.core import SparseTensor as JaxSparseTensor
 from repro.core.cpals import CPALSState as JaxCPALSState
+from repro_torch import configs as pconfigs
 from repro_torch import convert
 
 
@@ -72,6 +77,38 @@ def both_states(factors):
     pstate = convert.cpals_state_from_numpy(factors, lmbda, zero, zero, 0,
                                             "cpu")
     return jstate, pstate
+
+
+def lm_cfgs(arch, **over):
+    """``smoke_of(arch)`` (with ``over`` replaced) in both packages:
+    (reference config, port config).  Only smoke widths: no test builds a
+    model wider than ``smoke_of``."""
+    return (dataclasses.replace(jconfigs.smoke_of(jconfigs.get(arch)), **over),
+            dataclasses.replace(pconfigs.smoke_of(pconfigs.get(arch)), **over))
+
+
+def lm_pair(arch, seed=0, **over):
+    """The same smoke model in both packages: (reference Model, its params,
+    port Model holding those params by value, on the CPU)."""
+    from repro.models import Model as JaxModel
+    from repro_torch.models import Model
+
+    jcfg, pcfg = lm_cfgs(arch, **over)
+    jm = JaxModel(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(seed))
+    pm = Model(pcfg)
+    pm.load_state_dict(convert.lm_params_from_numpy(
+        pcfg, jax.tree.map(np.asarray, jparams), "cpu"), assign=True)
+    return jm, jparams, pm
+
+
+def to_np(tree):
+    """A tree of JAX arrays or torch tensors as numpy."""
+    if isinstance(tree, dict):
+        return {k: to_np(v) for k, v in tree.items()}
+    if hasattr(tree, "detach"):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
 
 
 def test_np_coo_unique_and_in_range():
