@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint,
 streaming, front-door, serving, distributed, launcher and LM serving paths
-on one CUDA card and check them.
+(every LM family) on one CUDA card and check them.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -197,7 +197,26 @@ Phases; any failure raises and exits non-zero:
    kernels a step and their device time against the wall; and ``smoke_of(llama3.2-3b)`` in float32 with the same
    parameters on the card and the CPU: logits within 1e-4 and the same
    greedy tokens.  This path reaches no hand-written kernel.
-19. One JSON line of kernel numbers, then, as the last line,
+19. The other LM families (``lm-families``): in float32 at full width, one
+   decode step against the forward (rtol 1e-2, atol 2e-2) for rwkv6-3b
+   (batch 2, prompt 64) and recurrentgemma-9b (batch 1, prompt 2560, past
+   its 2048-slot local ring); ``wkv_chunked`` (chunks of 128) against
+   ``wkv_scan`` at rwkv6-3b's head shape (40 x 64, 512 positions) within
+   1e-3 / 1e-4; then, each drawn on the card from the seed in bfloat16 and
+   freed before the next, rwkv6-3b, recurrentgemma-9b (prompts 512 and
+   2560), qwen2-vl-7b (embeddings, M-RoPE), seamless-m4t-large-v2 (16
+   source frames) at full depth, dbrx-132b at 4 of its 40 layers and
+   kimi-k2-1t-a32b at 2 of 61 (the dense layer and one MoE layer: the
+   full models do not fit one card), served through ``serve_batch`` and
+   ``generate`` at batch 4, prompt 512, 16 tokens: parameters and GB,
+   the peak while drawing, prefill s, decode tokens/s, the step's ms
+   beside its HBM bound (every weight and the cache read once), the peak,
+   ``moe_drop_frac``; every logit finite and every token in range; a few
+   decode steps under ``torch.profiler`` (kernels a step, busy share, the
+   MoE dispatch's sorts and scatters); and each family's ``smoke_of``
+   model in float32, card against CPU, within 1e-4 and the same greedy
+   tokens.  No hand-written kernel here either.
+20. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -238,6 +257,15 @@ LM_ARCH = "llama3.2-3b"
 LM_BATCH = 4
 LM_GEN = 32
 LM_PROFILE_STEPS = 4
+# phase 19: each family in bfloat16 at its published width, the prompts it
+# is served at, and the two MoE depth cuts one card's 80 GB forces
+FAMILY_PROMPTS = (("rwkv6-3b", (512,)), ("recurrentgemma-9b", (512, 2560)),
+                  ("qwen2-vl-7b", (512,)), ("seamless-m4t-large-v2", (512,)),
+                  ("dbrx-132b", (512,)), ("kimi-k2-1t-a32b", (512,)))
+FAMILY_LAYERS = {"dbrx-132b": 4, "kimi-k2-1t-a32b": 2}
+FAMILY_BATCH = 4
+FAMILY_GEN = 16
+FAMILY_PROFILE_PROMPT = 512
 # NVIDIA H100 SXM data sheet (dense, no sparsity) at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -1116,15 +1144,127 @@ def launcher(torch, dev, card: str, none: dict, zero_counts, read_counts,
     return time.perf_counter() - start
 
 
-def lm_serving(torch, dev, card: str, seed: int) -> float:
-    """Phase 18: LM serving at the full width of llama3.2-3b (see the module
-    docstring).  Returns the phase's seconds."""
+def synced(torch, fn):
+    """``fn()`` between two device synchronisations: (result, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def f32_decode_check(torch, dev, card: str, cfg, batch: int, prompt: int,
+                     seed: int, tag: str):
+    """``cfg`` in float32, drawn on the card from ``seed``: one decode step
+    after a prefill of ``prompt`` against the forward over prompt + 1
+    positions, within the reference's decode limits (rtol 1e-2, atol
+    2e-2).  Returns the model."""
     import dataclasses
 
     import numpy as np
 
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    model, draw_s = synced(torch, lambda: Model(cfg).init(
+        torch.Generator(device=dev).manual_seed(seed), dev))
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt + 1),
+                                       dtype=np.int32), device=dev)
+    with torch.no_grad():
+        full, fwd_s = synced(torch, lambda: model({"tokens": tok})[0][
+            :, -1])
+    cache = model.init_cache(batch, prompt + 1)
+    _, pre_s = synced(torch, lambda: model.prefill(
+        {"tokens": tok[:, :prompt]}, cache))
+    (got, _), dec_s = synced(torch, lambda: model.decode_step(
+        tok[:, prompt:], cache, prompt))
+    err = max_err(torch, got[:, 0], full, rtol=1e-2, atol=2e-2,
+                  what=f"{cfg.name} decode step vs forward (float32, full "
+                  f"width)")
+    print(f"[{tag}] {cfg.name} float32 at full width ({nbytes / 1e9:.3f} GB "
+          f"drawn on the card in {draw_s:.4f} s), batch {batch}, prompt "
+          f"{prompt} + 1: decode vs forward max |diff| {err:.3e} (limits "
+          f"rtol 1e-2, atol 2e-2); forward over {prompt + 1} tokens "
+          f"{fwd_s:.4f} s, prefill {pre_s:.4f} s, decode step {dec_s:.4f} s "
+          f"on {card}")
+    return model
+
+
+def smoke_card_vs_cpu(torch, dev, card: str, arch: str, seed: int,
+                      tag: str) -> None:
+    """``smoke_of(arch)`` in float32 with the same parameters on the card
+    and the CPU, served through ``serve_batch`` and ``generate`` (prompt
+    12, 8 tokens): logits within 1e-4 and the same greedy tokens."""
+    import numpy as np
+
     from repro_torch import configs
-    from repro_torch.launch.serve import generate, serve
+    from repro_torch.launch.serve import generate, serve_batch
+    from repro_torch.models import Model
+
+    scfg = configs.smoke_of(configs.get(arch))
+    cpu = Model(scfg).init(torch.Generator().manual_seed(seed), "cpu")
+    on_card = Model(scfg)
+    on_card.load_state_dict({k: v.to(dev) for k, v in
+                             cpu.state_dict().items()}, assign=True)
+    ids = np.random.default_rng(seed).integers(0, scfg.vocab, (2, 12),
+                                               dtype=np.int32)
+    want = generate(cpu, serve_batch(cpu, ids,
+                                     np.random.default_rng(seed + 1)), gen=8)
+    got = generate(on_card, serve_batch(on_card, ids,
+                                        np.random.default_rng(seed + 1)),
+                   gen=8)
+    err = max_err(torch, got["logits"].cpu(), want["logits"], rtol=1e-4,
+                  atol=1e-4, what=f"{scfg.name} logits, card vs CPU")
+    same = bool((got["tokens"] == want["tokens"]).all())
+    print(f"[{tag}] {scfg.name} float32 prompt 12 gen 8: card vs CPU logits "
+          f"max |diff| {err:.3e} (limits rtol 1e-4, atol 1e-4), greedy "
+          f"tokens equal={same} on {card}")
+    if not same:
+        raise AssertionError(f"{scfg.name}: greedy tokens differ between the "
+                             f"card and the CPU")
+
+
+# the MoE dispatch's kernels, by name: the expert sort, the capacity
+# search, the gathers into the buffer and the scatter back
+DISPATCH_KERNELS = re.compile(r"sort|Sort|search|index|scatter|gather")
+
+
+def profiled(torch, fn, calls: int) -> dict:
+    """``fn(i)`` for i < ``calls`` under torch.profiler: kernels a call,
+    their device ms a call against the wall's, and the MoE dispatch's
+    share (kernels and device ms a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    dispatch = [ev for ev in kernels if DISPATCH_KERNELS.search(ev.key)]
+    return {"kernels": sum(ev.count for ev in kernels) / calls,
+            "device_ms": sum(ev.device_time_total for ev in kernels)
+            / 1e3 / calls,
+            "wall_ms": wall * 1e3 / calls,
+            "dispatch": sum(ev.count for ev in dispatch) / calls,
+            "dispatch_ms": sum(ev.device_time_total for ev in dispatch)
+            / 1e3 / calls}
+
+
+def lm_serving(torch, dev, card: str, seed: int) -> float:
+    """Phase 18: LM serving at the full width of llama3.2-3b (see the module
+    docstring).  Returns the phase's seconds."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
     from repro_torch.models import Model
     from repro_torch.models import layers as L
     from repro_torch.models.params import tree_map
@@ -1132,44 +1272,14 @@ def lm_serving(torch, dev, card: str, seed: int) -> float:
     start = time.perf_counter()
     cfg = configs.get(LM_ARCH)
 
-    def sync_time(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     # 18.2 first: decode against forward in float32 at full width
-    f32 = dataclasses.replace(cfg, param_dtype="float32",
-                              compute_dtype="float32")
     torch.cuda.reset_peak_memory_stats()
-    model, draw_s = sync_time(lambda: Model(f32).init(
-        torch.Generator(device=dev).manual_seed(seed), dev))
-    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"[lm] {LM_ARCH} float32 at full width: {cfg.param_count()} "
-          f"parameters ({nbytes / 1e9:.3f} GB) drawn on the card in "
-          f"{draw_s:.4f} s on {card}")
-    rng = np.random.default_rng(seed)
-    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 65), dtype=np.int32),
-                          device=dev)
-    with torch.no_grad():
-        full, fwd_s = sync_time(lambda: model({"tokens": tok})[0][:, -1])
-    cache = model.init_cache(2, 65)
-    _, pre_s = sync_time(lambda: model.prefill({"tokens": tok[:, :64]},
-                                               cache))
-    (got, _), dec_s = sync_time(lambda: model.decode_step(tok[:, 64:], cache,
-                                                         64))
-    err = max_err(torch, got[:, 0], full, rtol=1e-2, atol=2e-2,
-                  what="decode step vs forward (float32, full width)")
-    print(f"[lm] decode vs forward, float32, batch 2, prompt 64 + 1: max "
-          f"|diff| {err:.3e} (limits rtol 1e-2, atol 2e-2); forward over 65 "
-          f"tokens {fwd_s:.4f} s, prefill 64 {pre_s:.4f} s, decode step "
-          f"{dec_s:.4f} s on {card}")
+    model = f32_decode_check(torch, dev, card, cfg, 2, 64, seed, "lm")
 
     # 18.1: one layer's attention at prompt 4096, batch 1, bfloat16
     layer = tree_map(lambda a: a[0].to(cfg.cdtype),
                      model.params()["stack"])["b0"]
-    del model, cache, full, got
+    del model
     torch.cuda.empty_cache()
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     with torch.no_grad():
@@ -1204,7 +1314,7 @@ def lm_serving(torch, dev, card: str, seed: int) -> float:
     for prompt in (4096, 512):
         for run in ("first", "second"):
             torch.cuda.reset_peak_memory_stats()
-            out, wall = sync_time(lambda: serve(
+            out, wall = synced(torch, lambda: serve(
                 LM_ARCH, smoke=False, batch=LM_BATCH, prompt_len=prompt,
                 gen=LM_GEN, seed=seed, device=dev))
             finite = bool(torch.isfinite(out["logits"]).all())
@@ -1228,57 +1338,187 @@ def lm_serving(torch, dev, card: str, seed: int) -> float:
 
     # where a decode step's time goes: its kernels' device time against its
     # wall, and how many it launches (torch.profiler over a few steps)
-    from torch.profiler import ProfilerActivity, profile
-
     model = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, 512),
                                            dtype=np.int32), device=dev)
     cache = model.init_cache(LM_BATCH, 512 + LM_PROFILE_STEPS + 1)
     model.prefill({"tokens": prompts}, cache)
     model.decode_step(prompts[:, -1:], cache, 512)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(LM_PROFILE_STEPS):
-            model.decode_step(prompts[:, -1:], cache, 513 + i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    launches = sum(ev.count for ev in kernels) / LM_PROFILE_STEPS
-    device_ms = (sum(ev.device_time_total for ev in kernels) / 1e3
-                 / LM_PROFILE_STEPS)
-    wall_ms = wall * 1e3 / LM_PROFILE_STEPS
+    prof = profiled(torch, lambda i: model.decode_step(
+        prompts[:, -1:], cache, 513 + i), LM_PROFILE_STEPS)
     print(f"[lm] decode step under torch.profiler ({LM_PROFILE_STEPS} steps, "
           f"batch {LM_BATCH}, cache {512 + LM_PROFILE_STEPS + 1}): "
-          f"{launches:.0f} kernels a step, device {device_ms:.3f} ms of "
-          f"{wall_ms:.3f} ms wall a step (busy share "
-          f"{device_ms / wall_ms:.3f}) on {card}")
-    del model, cache, prompts, prof
+          f"{prof['kernels']:.0f} kernels a step, device "
+          f"{prof['device_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall a step "
+          f"(busy share {prof['device_ms'] / prof['wall_ms']:.3f}) on {card}")
+    del model, cache, prompts
     torch.cuda.empty_cache()
 
     # 18.4: smoke_of in float32, the same parameters on the card and the CPU
-    scfg = configs.smoke_of(cfg)
-    cpu = Model(scfg).init(torch.Generator().manual_seed(seed), "cpu")
-    on_card = Model(scfg)
-    on_card.load_state_dict({k: v.to(dev) for k, v in
-                             cpu.state_dict().items()}, assign=True)
-    prompts = rng.integers(0, scfg.vocab, (2, 12), dtype=np.int32)
-    want = generate(cpu, {"tokens": torch.as_tensor(prompts)}, gen=8)
-    got = generate(on_card, {"tokens": torch.as_tensor(prompts, device=dev)},
-                   gen=8)
-    err = max_err(torch, got["logits"].cpu(), want["logits"], rtol=1e-4,
-                  atol=1e-4, what="smoke logits, card vs CPU")
-    same = bool((got["tokens"] == want["tokens"]).all())
-    print(f"[lm] {scfg.name} float32 prompt 12 gen 8: card vs CPU logits "
-          f"max |diff| {err:.3e} (limits rtol 1e-4, atol 1e-4), greedy "
-          f"tokens equal={same} "
-          f"on {card}")
-    if not same:
-        raise AssertionError("smoke greedy tokens differ between the card "
-                             "and the CPU")
+    smoke_card_vs_cpu(torch, dev, card, LM_ARCH, seed, "lm")
     return time.perf_counter() - start
+
+
+def lm_families(torch, dev, card: str, seed: int) -> float:
+    """Phase 19: the six other LM families served on the card (see the
+    module docstring).  Returns the phase's seconds."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate, serve_batch
+    from repro_torch.models import Model
+    from repro_torch.models.rwkv import wkv_chunked, wkv_scan
+
+    start = time.perf_counter()
+
+    def cut(arch: str):
+        cfg = configs.get(arch)
+        layers = FAMILY_LAYERS.get(arch)
+        return cfg if layers is None else dataclasses.replace(
+            cfg, num_layers=layers)
+
+    # 19.1: float32 decode against forward at full width
+    for arch, batch, prompt in (("rwkv6-3b", 2, 64),
+                                ("recurrentgemma-9b", 1, 2560)):
+        f32_decode_check(torch, dev, card, cut(arch), batch, prompt, seed,
+                         "families")
+        torch.cuda.empty_cache()
+
+    # 19.2: the chunked WKV against the scan at rwkv6-3b's head shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn((1, 512, 40, 64), generator=g, device=dev)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * torch.randn((1, 512, 40, 64),
+                                               generator=g, device=dev)))
+    u = 0.5 * torch.randn((40, 64), generator=g, device=dev)
+    (so, ss), scan_s = synced(torch, lambda: wkv_scan(r, k, v, w, u))
+    (co, cs), chunk_s = synced(torch, lambda: wkv_chunked(
+        r, k, v, w, u, chunk=128))
+    err = max(max_err(torch, co, so, rtol=1e-3, atol=1e-4,
+                      what="wkv_chunked vs wkv_scan, output"),
+              max_err(torch, cs, ss, rtol=1e-3, atol=1e-4,
+                      what="wkv_chunked vs wkv_scan, state"))
+    print(f"[families] wkv_chunked (chunk 128) vs wkv_scan, batch 1, 512 "
+          f"positions, 40 heads x 64, float32: max |diff| {err:.3e} (limits "
+          f"rtol 1e-3, atol 1e-4); scan {scan_s:.4f} s, chunked "
+          f"{chunk_s:.4f} s on {card}")
+    del r, k, v, w, u, so, ss, co, cs
+    torch.cuda.empty_cache()
+
+    # 19.3: each family in bfloat16 at its published width, served
+    for arch, prompts in FAMILY_PROMPTS:
+        cfg = cut(arch)
+        torch.cuda.reset_peak_memory_stats()
+        model, draw_s = synced(torch, lambda: Model(cfg).init(
+            torch.Generator(device=dev).manual_seed(seed), dev))
+        draw_gb = torch.cuda.max_memory_allocated() / 1e9
+        n = sum(p.numel() for p in model.parameters())
+        nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        depth = ("full" if arch not in FAMILY_LAYERS else
+                 f"{cfg.num_layers} of {configs.get(arch).num_layers} layers")
+        print(f"[families] {arch} bfloat16, {depth}: {n} parameters "
+              f"({nbytes / 1e9:.3f} GB) drawn in {draw_s:.4f} s, peak "
+              f"{draw_gb:.2f} GB while drawing on {card}")
+        rng = np.random.default_rng(seed)
+        for prompt in prompts:
+            torch.cuda.reset_peak_memory_stats()
+            ids = rng.integers(0, cfg.vocab, (FAMILY_BATCH, prompt),
+                               dtype=np.int32)
+            batch = serve_batch(model, ids, rng)
+            out, wall = synced(torch, lambda: generate(
+                model, batch, gen=FAMILY_GEN))
+            logits, toks = out["logits"], out["tokens"]
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} prompt {prompt}: non-finite "
+                                     f"logits")
+            if toks.shape != (FAMILY_BATCH, FAMILY_GEN) or not (
+                    (toks >= 0) & (toks < cfg.vocab)).all():
+                raise AssertionError(f"{arch} prompt {prompt}: tokens out "
+                                     f"of range or of shape {toks.shape}")
+            cache = model.init_cache(
+                FAMILY_BATCH, prompt + FAMILY_GEN,
+                src_len=batch["src_embeds"].shape[1] if cfg.encdec else 0)
+            cache_bytes = sum(t.numel() * t.element_size()
+                              for t in _leaves(cache))
+            del cache
+            step_ms = out["decode_s"] / (FAMILY_GEN - 1) * 1e3
+            bound_ms = (nbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+            moe = ""
+            if cfg.moe:
+                moe = (f" moe_drop_frac="
+                       f"{float(out['metrics']['moe_drop_frac']):.4f}")
+            print(f"[families] serve {arch} batch {FAMILY_BATCH} prompt "
+                  f"{prompt} gen {FAMILY_GEN}: prefill_s="
+                  f"{out['prefill_s']:.4f} decode_s={out['decode_s']:.4f} "
+                  f"({out['decode_tok_s']:.1f} tokens/s, {step_ms:.3f} ms a "
+                  f"step, HBM bound {bound_ms:.3f} ms: {nbytes / 1e9:.3f} GB "
+                  f"of weights + {cache_bytes / 1e9:.3f} GB of cache) "
+                  f"wall_s={wall:.4f} peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+                  f"{moe} on {card}")
+            if prompt == FAMILY_PROFILE_PROMPT:
+                _profile_family(torch, model, batch, card, arch, prompt)
+            del out, logits, batch
+        del model
+        torch.cuda.empty_cache()
+
+    # 19.4: each family's smoke model in float32, card against CPU
+    for arch, _ in FAMILY_PROMPTS:
+        smoke_card_vs_cpu(torch, dev, card, arch, seed, "families")
+    return time.perf_counter() - start
+
+
+def _leaves(tree: dict):
+    for val in tree.values():
+        if isinstance(val, dict):
+            yield from _leaves(val)
+        else:
+            yield val
+
+
+def _profile_family(torch, model, batch: dict, card: str, arch: str,
+                    prompt: int) -> None:
+    """Where a served family's time goes, under torch.profiler: a few
+    decode steps at position ``prompt`` of a zeroed cache (a step's work
+    does not depend on the cache's values) and, for an MoE model, one
+    prefill of ``batch``: kernels a call, the busy share, and the MoE
+    dispatch's kernels and device time."""
+    cfg = model.cfg
+    dev = model.device
+    src = batch["src_embeds"].shape[1] if cfg.encdec else 0
+    cache = model.init_cache(FAMILY_BATCH, prompt + LM_PROFILE_STEPS + 1,
+                             src_len=src)
+    tok = torch.zeros((FAMILY_BATCH, 1), dtype=torch.int32, device=dev)
+
+    def step(i):
+        pos = prompt + i
+        positions = None
+        if cfg.rope == "mrope":
+            positions = torch.full((3, FAMILY_BATCH, 1), pos,
+                                   dtype=torch.int32, device=dev)
+        model.decode_step(tok, cache, pos, positions=positions)
+
+    step(0)  # warm-up
+    calls = [("decode step", profiled(
+        torch, lambda i: step(1 + i), LM_PROFILE_STEPS), LM_PROFILE_STEPS)]
+    if cfg.moe:
+        calls.append(("prefill", profiled(
+            torch, lambda i: model.prefill(batch, cache), 1), 1))
+    for what, prof, n in calls:
+        line = (f"[families] {arch} {what} under torch.profiler ({n} "
+                f"call{'s' if n > 1 else ''}, batch {FAMILY_BATCH}, "
+                f"prompt {prompt}): {prof['kernels']:.0f} kernels a call, "
+                f"device {prof['device_ms']:.3f} ms of {prof['wall_ms']:.3f} "
+                f"ms wall (busy share "
+                f"{prof['device_ms'] / prof['wall_ms']:.3f})")
+        if cfg.moe:
+            line += (f"; MoE dispatch (sort, search, index, gather and "
+                     f"scatter kernels): {prof['dispatch']:.0f} kernels, "
+                     f"{prof['dispatch_ms']:.3f} ms device")
+        print(f"{line} on {card}")
 
 
 def main() -> int:
@@ -2035,7 +2275,10 @@ def main() -> int:
     # --- 18. LM serving: llama3.2-3b at full width ------------------------
     lm_s = lm_serving(torch, dev, card, args.seed)
 
-    # --- 19. results --------------------------------------------------------
+    # --- 19. the other LM families at their published widths -------------
+    families_s = lm_families(torch, dev, card, args.seed)
+
+    # --- 20. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",
@@ -2072,6 +2315,8 @@ def main() -> int:
     print(f"[dist] the distributed phase ran {dist_s:.1f} s on {card}")
     print(f"[launch] the launcher phase ran {launch_s:.1f} s on {card}")
     print(f"[lm] the LM serving phase ran {lm_s:.1f} s on {card}")
+    print(f"[families] the LM families phase ran {families_s:.1f} s on "
+          f"{card}")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

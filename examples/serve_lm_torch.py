@@ -1,8 +1,10 @@
 """Batched serving example on the PyTorch port: prefill a batch of prompts,
-then decode greedily against the KV cache (the dense family).
+then decode greedily against the KV cache and the recurrent states, for any
+of the ten LM archs (dense, MoE, RWKV-6, RG-LRU hybrid, M-RoPE embeddings,
+encoder-decoder).
 
   PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
-  PYTHONPATH=src python examples/serve_lm_torch.py --arch gemma-7b --device cpu
+  PYTHONPATH=src python examples/serve_lm_torch.py --arch rwkv6-3b --device cpu
 
 Smoke widths, random weights drawn from a seed; without ``--device`` it
 runs on the CUDA card.

@@ -21,7 +21,7 @@
     dist/      the straggler monitor
     utils/     plan_report
     models/    the LM substrate: configs, parameter specs, layers and the
-               stacked Model (the dense family: prefill and decode)
+               stacked Model (every family: prefill and decode)
     configs/   the ten architecture presets and the CP-ALS workloads
     launch/    the serving launchers (``python -m repro_torch.launch.serve``)
     convert.py numpy bridges for comparing with the JAX package

@@ -1,7 +1,8 @@
 """repro_torch.launch: the launchers (counterpart of ``repro.launch``).
 
     steps.py   make_prefill_step / make_serve_step (LM) and make_cpals_step
-    serve.py   serve (LM token serving), cpd_config / serve_cpd
+    serve.py   serve / generate (LM token serving, every arch),
+               cpd_config / serve_cpd
                (decomposition serving through Session) and the
                ``python -m repro_torch.launch.serve`` entry point
 

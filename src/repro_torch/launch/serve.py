@@ -7,14 +7,15 @@ Counterpart of ``repro.launch.serve``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch cpals-yelp \\
       --smoke --batch 256 --queries 2048 --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
 
 Both run on the CUDA card unless ``--device`` (``device=``) names another
 device, and raise without a card.  The decomposition path drives
 :class:`repro_torch.api.Session` and shares its RunConfig with ``python -m
-repro_torch serve``.  The LM path runs the dense family; another family
-raises with the ROADMAP item that holds it.
+repro_torch serve``.  The LM path runs every LM arch: token or embedding
+inputs, M-RoPE positions and an encoder-decoder's source frames are built
+as the reference builds them.
 """
 from __future__ import annotations
 
@@ -30,24 +31,35 @@ from repro_torch.configs import CPALS_DATASET
 from repro_torch.core.coo import DeviceLike, resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import Model
+from repro_torch.models import layers as L
+
+# an encoder-decoder's source frames a request (the reference's serve)
+SRC_LEN = 16
 
 
 def generate(model: Model, batch: dict, *, gen: int) -> dict:
-    """Prefill ``batch["tokens"]`` (B, S) into a fresh cache of S + gen
-    slots, then decode ``gen - 1`` more tokens greedily.
+    """Prefill ``batch`` (``tokens`` (B, S), or ``embeds`` (B, S, D); M-RoPE
+    ``positions`` (3, B, S); an encoder-decoder's ``src_embeds`` (B, T, D))
+    into a fresh cache of S + gen slots (and T cross slots), then decode
+    ``gen - 1`` more tokens greedily, M-RoPE positions at ``S + i``.
 
     Returns the ``gen`` tokens a row (numpy), each step's last-position
-    logits (B, gen, V) on the model's device, and the prefill and decode
-    seconds, each ending in a device synchronisation."""
+    logits (B, gen, V) on the model's device, the last metrics of the
+    prefill (the MoE blocks'), and the prefill and decode seconds, each
+    ending in a device synchronisation."""
+    cfg = model.cfg
     dev = model.device
-    b, s = batch["tokens"].shape
-    cache = model.init_cache(b, s + gen)
+    inputs = batch["embeds"] if cfg.input_mode == "embeds" \
+        else batch["tokens"]
+    b, s = inputs.shape[:2]
+    src_len = batch["src_embeds"].shape[1] if cfg.encdec else 0
+    cache = model.init_cache(b, s + gen, src_len=src_len)
     prefill = make_prefill_step(model)
     step = make_serve_step(model)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(batch, cache)
+    logits, cache, metrics = prefill(batch, cache)
     toks = [logits[:, -1].argmax(dim=-1).to(torch.int32)]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -55,24 +67,55 @@ def generate(model: Model, batch: dict, *, gen: int) -> dict:
     steps = [logits[:, -1]]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = step(toks[-1][:, None], cache, s + i)
+        positions = None
+        if cfg.rope == "mrope":
+            positions = torch.full((3, b, 1), s + i, dtype=torch.int32,
+                                   device=dev)
+        logits, cache = step(toks[-1][:, None], cache, s + i, positions)
         steps.append(logits[:, -1])
         toks.append(logits[:, -1].argmax(dim=-1).to(torch.int32))
     _sync(dev)
     t_decode = time.perf_counter() - t0
 
     return {"tokens": torch.stack(toks, dim=1).cpu().numpy(),
-            "logits": torch.stack(steps, dim=1), "prefill_s": t_prefill,
-            "decode_s": t_decode,
+            "logits": torch.stack(steps, dim=1), "metrics": metrics,
+            "prefill_s": t_prefill, "decode_s": t_decode,
             "decode_tok_s": b * (gen - 1) / max(t_decode, 1e-9)}
+
+
+def serve_batch(model: Model, prompts: np.ndarray,
+                rng: np.random.Generator) -> dict:
+    """The reference's prefill batch for ``prompts`` (B, S) int32: token
+    ids, or their embeddings through the table for an ``embeds`` model;
+    M-RoPE positions 0..S-1 on all three streams; an encoder-decoder's
+    ``src_embeds`` (B, 16, D), drawn from ``rng`` after the prompts."""
+    cfg = model.cfg
+    dev = model.device
+    b, s = prompts.shape
+    tokens = torch.as_tensor(prompts, device=dev)
+    out = {}
+    if cfg.input_mode == "embeds":
+        with torch.no_grad():
+            out["embeds"] = L.embed({"table": model.embed.table}, cfg, tokens)
+    else:
+        out["tokens"] = tokens
+    if cfg.rope == "mrope":
+        out["positions"] = torch.arange(s, dtype=torch.int32, device=dev)[
+            None, None].expand(3, b, s)
+    if cfg.encdec:
+        out["src_embeds"] = torch.as_tensor(
+            rng.standard_normal((b, SRC_LEN, cfg.d_model), dtype=np.float32),
+            device=dev)
+    return out
 
 
 def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
           seed: int = 0, device: DeviceLike = None) -> dict:
     """LM token serving (prefill + greedy decode) for an LM arch, with
-    parameters drawn on ``device`` from ``seed`` and prompts drawn with
-    numpy from ``seed`` (the reference's prompts).  Not the decomposition
-    path: that is :func:`serve_cpd` here and ``repro_torch.serve``."""
+    parameters drawn on ``device`` from ``seed`` and prompts (and an
+    encoder-decoder's source frames) drawn with numpy from ``seed``, in the
+    reference's order.  Not the decomposition path: that is
+    :func:`serve_cpd` here and ``repro_torch.serve``."""
     cfg = configs.get(arch)
     if smoke:
         cfg = configs.smoke_of(cfg)
@@ -80,9 +123,8 @@ def serve(arch: str, *, smoke: bool, batch: int, prompt_len: int, gen: int,
     model = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
                             dev)
     rng = np.random.default_rng(seed)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len),
-                                           dtype=np.int32), device=dev)
-    return generate(model, {"tokens": prompts}, gen=gen)
+    prompts = rng.integers(0, cfg.vocab, (batch, prompt_len), dtype=np.int32)
+    return generate(model, serve_batch(model, prompts, rng), gen=gen)
 
 
 def cpd_config(workload: str, *, smoke: bool, rank: int, niters: int,

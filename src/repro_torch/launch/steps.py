@@ -9,6 +9,8 @@ cache in place.  ``make_train_step`` waits for training (ROADMAP §1 item
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import Model
 
 
@@ -31,9 +33,11 @@ def make_cpals_step(plan):
 
 
 def make_prefill_step(model: Model):
-    """(batch, cache) -> (logits (B,1,V), cache)."""
+    """(batch, cache) -> (logits (B,1,V), cache, metrics): the reference's
+    prefill step, with the forward's metrics (the MoE blocks') beside it."""
     def prefill_step(batch, cache):
-        return model.prefill(batch, cache)
+        with torch.no_grad():
+            return model(batch, mode="prefill", cache=cache)
     return prefill_step
 
 

@@ -1,7 +1,8 @@
 """LM substrate for the assigned architecture pool (counterpart of
 ``repro.models``): configs, parameter specs, the shared layers and the
-stacked :class:`Model`.  This package runs the dense family (the ``attn``
-block kind) for prefill and decode; see ``transformer.py``."""
+stacked :class:`Model`, with the ``moe``, ``rec`` (RG-LRU) and ``rwkv``
+block kinds beside ``attn``.  Every family runs prefill and decode; see
+``transformer.py``."""
 from .config import SHAPES, ModelConfig, MoEConfig, ShapeConfig, cell_is_skipped
 from .transformer import Model
 

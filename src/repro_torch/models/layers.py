@@ -29,8 +29,13 @@ NEG_INF = -2.0e38
 # activation sharding hook
 # ---------------------------------------------------------------------------
 # The reference's launch layer installs a callback constraining activations
-# to logical mesh axes.  This package has no production mesh yet (ROADMAP
-# §1 item 10b-3), so ``shard_act`` is the identity and no hook can be set.
+# to logical mesh axes, and the mesh beside it (expert-parallel MoE reads
+# it).  This package has no production mesh yet (ROADMAP §1 item 10b-3), so
+# ``shard_act`` is the identity and no hook can be set: both stay None.
+
+_SHARDING_HOOK = None
+_MESH = None
+
 
 def set_sharding_hook(fn, mesh=None) -> None:
     if fn is not None or mesh is not None:
@@ -38,6 +43,15 @@ def set_sharding_hook(fn, mesh=None) -> None:
             "activation sharding needs the production mesh "
             "(launch/mesh.py), which is not ported yet (ROADMAP §1 item "
             "10b-3)")
+
+
+def get_mesh():
+    return _MESH
+
+
+def sharded() -> bool:
+    """Whether a sharding hook or a mesh is installed (never, here)."""
+    return _SHARDING_HOOK is not None or _MESH is not None
 
 
 def shard_act(x: torch.Tensor, axes: tuple) -> torch.Tensor:
@@ -261,7 +275,10 @@ def attention(
       * train/prefill: full-sequence; new_cache returned iff cache is not
         None (prefill fills it, in place);
       * decode: x is (B, 1, D), cache holds K/V (ring buffer when local),
-        written in place at ``pos`` (``pos % cap`` for the ring).
+        written in place at ``pos`` (``pos % cap`` for the ring);
+      * cross (``memory`` given): a cache holding ``ck``/``cv`` is filled
+        in place from ``memory`` when s > 1 and read, not recomputed, when
+        s == 1.
     """
     b, s, d = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -273,7 +290,13 @@ def attention(
         else:
             k = torch.einsum("btd,dnk->btnk", memory, p["wk"])
             v = torch.einsum("btd,dnk->btnk", memory, p["wv"])
-            new_cache = {"ck": k, "cv": v} if cache is not None else None
+            new_cache = None
+            if cache is not None and "ck" in cache:  # prefill fills it
+                cache["ck"].copy_(k)
+                cache["cv"].copy_(v)
+                new_cache = cache
+            elif cache is not None:
+                new_cache = {"ck": k, "cv": v}
         mask = torch.ones((1, 1, 1, s, k.shape[1]), dtype=torch.bool,
                           device=x.device)
         out = _sdpa(cfg, q, k, v, mask)

@@ -14,9 +14,13 @@ allocated); ``init(generator, device)`` draws them, and
 ``load_state_dict(..., assign=True)`` takes given ones (see
 ``repro_torch.convert.lm_params_from_numpy``).
 
-This slice ports the ``attn`` block kind with token inputs: the dense
-family.  The other block kinds, the encoder-decoder, embedding inputs and
-the training loss raise ``NotImplementedError`` naming their ROADMAP item.
+Every block kind runs: ``attn``, ``moe`` (``moe.py``), ``rec`` (RG-LRU,
+``rglru.py``) and ``rwkv`` (``rwkv.py``), with token or embedding inputs
+(M-RoPE positions ride in the batch) and the encoder-decoder (its encoder
+runs on ``src_embeds``; the decoder's cross K/V are cached at prefill).
+Every cache, recurrent states included, is written in place, so a cache
+tree's tensors stay the same objects from step to step.  The training loss
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,61 +32,91 @@ from torch import nn
 from repro_torch.core.coo import DeviceLike, resolve_device
 
 from . import layers as L
+from . import moe as MOE
+from . import rglru as RG
+from . import rwkv as RW
 from .config import ModelConfig
 from .params import (ParamSpec, abstract_params, init_params, stack_specs,
                      tree_map)
 
-# the ROADMAP items that hold what this package does not run yet
-KINDS_ITEM = "ROADMAP §1 item 10b-1"
+# the ROADMAP item that holds what this package does not run yet
 TRAIN_ITEM = "ROADMAP §1 item 10b-2"
-
-
-def unported(cfg: ModelConfig) -> Optional[str]:
-    """Why ``cfg`` cannot run in this package yet, or None."""
-    kinds = sorted(set(cfg.prefix + cfg.pattern + cfg.suffix) - {"attn"})
-    if kinds:
-        return (f"{cfg.name}: block kinds {kinds} are not ported yet "
-                f"({KINDS_ITEM})")
-    if cfg.encdec:
-        return (f"{cfg.name}: the encoder-decoder is not ported yet "
-                f"({KINDS_ITEM})")
-    if cfg.input_mode != "tokens" or cfg.rope == "mrope":
-        return (f"{cfg.name}: embedding inputs and M-RoPE positions are not "
-                f"ported yet ({KINDS_ITEM})")
-    return None
 
 
 # ---------------------------------------------------------------------------
 # per-block specs
 # ---------------------------------------------------------------------------
 
-def block_specs(cfg: ModelConfig, kind: str) -> dict:
+def block_specs(cfg: ModelConfig, kind: str, *, decoder: bool = False) -> dict:
     if kind == "attn":
+        out = {"n1": L.norm_specs(cfg), "attn": L.attn_specs(cfg),
+               "n2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+        if decoder and cfg.encdec:
+            out["nx"] = L.norm_specs(cfg)
+            out["xattn"] = L.attn_specs(cfg)
+        return out
+    if kind == "moe":
         return {"n1": L.norm_specs(cfg), "attn": L.attn_specs(cfg),
+                "n2": L.norm_specs(cfg), "moe": MOE.moe_specs(cfg)}
+    if kind == "rec":
+        return {"n1": L.norm_specs(cfg), "rec": RG.rglru_specs(cfg),
                 "n2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                              f"({KINDS_ITEM})")
+    if kind == "rwkv":
+        return {"n1": L.norm_specs(cfg), "n2": L.norm_specs(cfg),
+                "rwkv": RW.rwkv_specs(cfg)}
+    raise ValueError(kind)
 
 
 def apply_block(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                 ctx: dict):
-    """Returns (x, new_cache, metrics)."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  f"({KINDS_ITEM})")
+    """Returns (x, new_cache, metrics); a given cache is written in place."""
     cache = ctx.get("cache")
-    h, acache = L.attention(
-        p["attn"], cfg, L.apply_norm(p["n1"], cfg, x),
-        mask_kind=ctx["mask_kind"], positions=ctx.get("positions"),
-        cache=cache.get("self") if cache else None, pos=ctx.get("pos"))
-    x = x + h
-    new_cache = {"self": acache} if cache is not None else None
-    h2 = L.mlp(p["mlp"], cfg, L.apply_norm(p["n2"], cfg, x))
-    return x + h2, new_cache, {}
+    metrics: dict = {}
+    if kind in ("attn", "moe"):
+        h, acache = L.attention(
+            p["attn"], cfg, L.apply_norm(p["n1"], cfg, x),
+            mask_kind=ctx["mask_kind"], positions=ctx.get("positions"),
+            cache=cache.get("self") if cache else None, pos=ctx.get("pos"))
+        x = x + h
+        new_cache = {"self": acache} if cache is not None else None
+        if cfg.encdec and "xattn" in p:
+            h, xcache = L.attention(
+                p["xattn"], cfg, L.apply_norm(p["nx"], cfg, x),
+                mask_kind="bidir", memory=ctx.get("memory"),
+                cache=cache.get("cross") if cache else None,
+                pos=ctx.get("pos"))
+            x = x + h
+            if new_cache is not None:
+                new_cache["cross"] = xcache
+        h2 = L.apply_norm(p["n2"], cfg, x)
+        if kind == "moe":
+            h2, metrics = MOE.moe_ffn(p["moe"], cfg, h2)
+        else:
+            h2 = L.mlp(p["mlp"], cfg, h2)
+        return x + h2, new_cache, metrics
+    if kind == "rec":
+        h, rcache = RG.rglru_block(p["rec"], cfg,
+                                   L.apply_norm(p["n1"], cfg, x), cache)
+        x = x + h
+        return (x + L.mlp(p["mlp"], cfg, L.apply_norm(p["n2"], cfg, x)),
+                rcache, metrics)
+    if kind == "rwkv":
+        h, c1 = RW.time_mix(p["rwkv"], cfg, L.apply_norm(p["n1"], cfg, x),
+                            cache, use_chunked=ctx.get("chunked", False))
+        x = x + h
+        h2, c2 = RW.channel_mix(p["rwkv"], cfg, L.apply_norm(p["n2"], cfg, x),
+                                c1)
+        return x + h2, c2, metrics
+    raise ValueError(kind)
 
 
-def _block_mask_kind(cfg: ModelConfig, kind: str) -> str:
-    return "local" if cfg.attn_kind == "local" else "causal"
+def _block_mask_kind(cfg: ModelConfig, kind: str, *,
+                     encoder: bool = False) -> str:
+    if encoder:
+        return "bidir"
+    if kind in ("attn", "moe") and cfg.attn_kind == "local":
+        return "local"
+    return "causal"
 
 
 # ---------------------------------------------------------------------------
@@ -90,19 +124,40 @@ def _block_mask_kind(cfg: ModelConfig, kind: str) -> str:
 # ---------------------------------------------------------------------------
 
 def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int,
-                      cache_len: int) -> dict:
-    """The ``attn`` kind's cache (the only kind a Model admits)."""
+                      cache_len: int, *, src_len: int = 0,
+                      decoder: bool = False) -> dict:
     kv, hd = cfg.num_kv_heads, cfg.head_dim
-    cap = min(cfg.window, cache_len) if cfg.attn_kind == "local" else cache_len
-    return {"self": {
-        "k": ParamSpec((batch, cap, kv, hd),
-                       ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
-                       "zeros"),
-        "v": ParamSpec((batch, cap, kv, hd),
-                       ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
-                       "zeros"),
-        "slot_pos": ParamSpec((cap,), ("cache_seq",), "zeros"),
-    }}
+    if kind in ("attn", "moe"):
+        cap = (min(cfg.window, cache_len) if cfg.attn_kind == "local"
+               else cache_len)
+        kv_axes = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
+        spec = {"self": {
+            "k": ParamSpec((batch, cap, kv, hd), kv_axes, "zeros"),
+            "v": ParamSpec((batch, cap, kv, hd), kv_axes, "zeros"),
+            "slot_pos": ParamSpec((cap,), ("cache_seq",), "zeros"),
+        }}
+        if decoder and cfg.encdec:
+            spec["cross"] = {
+                "ck": ParamSpec((batch, src_len, kv, hd), kv_axes, "zeros"),
+                "cv": ParamSpec((batch, src_len, kv, hd), kv_axes, "zeros"),
+            }
+        return spec
+    if kind == "rec":
+        w = cfg.rglru_width or cfg.d_model
+        return {"h": ParamSpec((batch, w), ("cache_batch", "rnn"), "zeros"),
+                "conv": ParamSpec((batch, cfg.conv_width - 1, w),
+                                  ("cache_batch", None, "rnn"), "zeros")}
+    if kind == "rwkv":
+        d, n = cfg.d_model, cfg.rwkv_head_dim
+        return {
+            "state": ParamSpec((batch, d // n, n, n),
+                               ("cache_batch", "heads", None, None), "zeros"),
+            "tm_prev": ParamSpec((batch, d), ("cache_batch", "embed"),
+                                 "zeros"),
+            "cm_prev": ParamSpec((batch, d), ("cache_batch", "embed"),
+                                 "zeros"),
+        }
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -134,9 +189,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        why = unported(cfg)
-        if why is not None:
-            raise NotImplementedError(why)
         self.cfg = cfg
         self.prefix_kinds, self.reps, self.suffix_kinds = cfg.layer_plan
         self.pattern = cfg.pattern
@@ -146,17 +198,24 @@ class Model(nn.Module):
     # -- parameter specs ----------------------------------------------------
     def param_specs(self) -> dict:
         cfg = self.cfg
+        dec = cfg.encdec
         specs: dict[str, Any] = {"embed": L.embed_specs(cfg)}
         if self.prefix_kinds:
-            specs["prefix"] = {f"p{i}": block_specs(cfg, k)
+            specs["prefix"] = {f"p{i}": block_specs(cfg, k, decoder=dec)
                                for i, k in enumerate(self.prefix_kinds)}
-        unit = {f"b{i}": block_specs(cfg, k)
+        unit = {f"b{i}": block_specs(cfg, k, decoder=dec)
                 for i, k in enumerate(self.pattern)}
         specs["stack"] = stack_specs(unit, self.reps)
         if self.suffix_kinds:
-            specs["suffix"] = {f"s{i}": block_specs(cfg, k)
+            specs["suffix"] = {f"s{i}": block_specs(cfg, k, decoder=dec)
                                for i, k in enumerate(self.suffix_kinds)}
         specs["final_norm"] = L.norm_specs(cfg)
+        if cfg.encdec:
+            specs["encoder"] = {
+                "stack": stack_specs({"b0": block_specs(cfg, "attn")},
+                                     cfg.enc_layers),
+                "final_norm": L.norm_specs(cfg),
+            }
         return specs
 
     def init(self, generator: Optional[torch.Generator] = None,
@@ -185,9 +244,15 @@ class Model(nn.Module):
         return self.embed.table.device
 
     # -- cache specs ----------------------------------------------------------
-    def cache_specs(self, batch: int, cache_len: int) -> dict:
+    def cache_specs(self, batch: int, cache_len: int, *,
+                    src_len: int = 0) -> dict:
         cfg = self.cfg
-        mk = lambda k: _block_cache_spec(cfg, k, batch, cache_len)  # noqa: E731
+        dec = cfg.encdec
+
+        def mk(kind):
+            return _block_cache_spec(cfg, kind, batch, cache_len,
+                                     src_len=src_len, decoder=dec)
+
         out: dict[str, Any] = {}
         if self.prefix_kinds:
             out["prefix"] = {f"p{i}": mk(k)
@@ -199,30 +264,54 @@ class Model(nn.Module):
                              for i, k in enumerate(self.suffix_kinds)}
         return out
 
-    def init_cache(self, batch: int, cache_len: int, *,
+    def init_cache(self, batch: int, cache_len: int, *, src_len: int = 0,
                    device: DeviceLike = None) -> dict:
-        """A zeroed cache on ``device`` (the parameters' device when None):
-        K/V in ``cdtype``, ``slot_pos`` int32 at the empty-slot sentinel."""
+        """A zeroed cache on ``device`` (the parameters' device when None),
+        in the reference's dtypes: recurrent ``state`` and ``h`` float32,
+        ``slot_pos`` int32 at the empty-slot sentinel, the rest ``cdtype``."""
         dev = self.device if device is None else torch.device(device)
-        cache = tree_map(lambda s: torch.zeros(s.shape, dtype=torch.float32,
-                                               device=dev),
-                         self.cache_specs(batch, cache_len))
-        return self._fix_cache_dtypes(cache)
-
-    def _fix_cache_dtypes(self, cache: dict) -> dict:
-        return _fix_cache_dtypes(cache, self.cfg.cdtype)
+        return _zero_cache(self.cache_specs(batch, cache_len,
+                                            src_len=src_len),
+                           self.cfg.cdtype, dev)
 
     # -- forward ------------------------------------------------------------
+    def _inputs_to_x(self, params: dict, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.input_mode == "embeds":
+            x = batch["embeds"].to(cfg.cdtype)
+            if cfg.scale_embed:
+                x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                                     device=x.device)
+            return x
+        return L.embed(params["embed"], cfg, batch["tokens"])
+
+    def _encode(self, params: dict, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        x = batch["src_embeds"].to(cfg.cdtype)
+        enc = params["encoder"]
+        ctx = {"mask_kind": _block_mask_kind(cfg, "attn", encoder=True)}
+        for r in range(cfg.enc_layers):
+            unit = tree_map(lambda a: a[r], enc["stack"])
+            x, _, _ = apply_block("attn", unit["b0"], cfg, x, ctx)
+        return L.apply_norm(enc["final_norm"], cfg, x)
+
     def forward(self, batch: dict, *, mode: str = "train", cache=None,
                 pos=None):
         """mode: train | prefill | decode | hidden.  Returns (logits,
         new_cache, metrics); prefill and decode keep only the last
-        position's logits, and update ``cache`` in place."""
+        position's logits, and update ``cache`` in place.  The metrics (the
+        MoE blocks') are the reference's: the stack's averaged over its
+        reps, then every block entry's averaged."""
         cfg = self.cfg
         params = self.params()
-        x = L.embed(params["embed"], cfg, batch["tokens"])
+        x = self._inputs_to_x(params, batch)
+        memory = self._encode(params, batch) if cfg.encdec else None
         use_cache = cache is not None
-        base_ctx = {"positions": batch.get("positions"), "pos": pos}
+        # the chunked (parallel-form) WKV only under the reference's cost
+        # probes; serving runs the sequential scan
+        base_ctx = {"positions": batch.get("positions"), "memory": memory,
+                    "pos": pos, "chunked": cfg.unroll_loops}
+        metrics_acc: list[dict] = []
         new_cache: dict[str, Any] = {}
 
         def run_block(kind, p, x, c):
@@ -235,22 +324,31 @@ class Model(nn.Module):
                 new_cache[part] = {}
             for i, kind in enumerate(kinds):
                 c = cache[part][f"{tag}{i}"] if use_cache else None
-                x, nc, _ = run_block(kind, params[part][f"{tag}{i}"], x, c)
+                x, nc, met = run_block(kind, params[part][f"{tag}{i}"], x, c)
                 if use_cache:
                     new_cache[part][f"{tag}{i}"] = nc
+                metrics_acc.append(met)
             return x
 
         if self.prefix_kinds:
             x = run_unstacked(x, "prefix", self.prefix_kinds, "p")
         # the stacked body, one rep at a time (the reference's scan); the
         # cache's stacked tensors are written in place through the views
+        stack_mets: dict[str, list] = {}
         for r in range(self.reps):
             unit = tree_map(lambda a: a[r], params["stack"])
             ucache = (tree_map(lambda a: a[r], cache["stack"])
                       if use_cache else None)
+            mets: dict = {}
             for i, kind in enumerate(self.pattern):
                 c = ucache[f"b{i}"] if use_cache else None
-                x, _, _ = run_block(kind, unit[f"b{i}"], x, c)
+                x, _, met = run_block(kind, unit[f"b{i}"], x, c)
+                mets.update(met)
+            for k, v in mets.items():
+                stack_mets.setdefault(k, []).append(v)
+        if stack_mets:
+            metrics_acc.append({k: torch.stack(v).mean()
+                                for k, v in stack_mets.items()})
         if use_cache:
             new_cache["stack"] = cache["stack"]
         if self.suffix_kinds:
@@ -259,10 +357,15 @@ class Model(nn.Module):
         x = L.apply_norm(params["final_norm"], cfg, x)
         if mode in ("prefill", "decode"):
             x = x[:, -1:]  # only the last position's logits are needed
+
+        metrics: dict = {}
+        for m in metrics_acc:
+            for k, v in m.items():
+                metrics[k] = metrics.get(k, 0.0) + v / max(1, len(metrics_acc))
         out_cache = new_cache if use_cache else None
         if mode == "hidden":
-            return x, out_cache, {}
-        return L.unembed(params["embed"], cfg, x), out_cache, {}
+            return x, out_cache, metrics
+        return L.unembed(params["embed"], cfg, x), out_cache, metrics
 
     # -- public steps ---------------------------------------------------------
     def loss(self, batch):
@@ -279,30 +382,45 @@ class Model(nn.Module):
     def decode_step(self, tokens: torch.Tensor, cache: dict, pos, *,
                     positions=None):
         """tokens (B, 1) -> (logits (B,1,V), new_cache); ``pos`` is the
-        position being written (an int)."""
+        position being written (an int).  Decode runs in token space: an
+        ``embeds`` model embeds the token through its table, and an
+        encoder-decoder reads the cross K/V its prefill cached (a zero
+        (B, 1, D) source goes through the encoder, as in the reference)."""
+        cfg = self.cfg
         batch = {"tokens": tokens}
+        if cfg.input_mode == "embeds":
+            batch = {"embeds": L.embed({"table": self.embed.table}, cfg,
+                                       tokens)}
         if positions is not None:
             batch["positions"] = positions
+        if cfg.encdec:
+            batch["src_embeds"] = torch.zeros(
+                (tokens.shape[0], 1, cfg.d_model), dtype=cfg.cdtype,
+                device=tokens.device)
         logits, new_cache, _ = self.forward(batch, mode="decode",
                                             cache=cache, pos=pos)
         return logits, new_cache
 
 
-def _fix_cache_dtypes(tree: dict, cdtype: torch.dtype) -> dict:
-    """K/V in ``cdtype``; ``slot_pos`` at a large POSITIVE sentinel, so
-    empty slots fail ``spos <= pos``.  (Module level: a recursive closure
-    would hold the model in a reference cycle.)"""
+# the leaves in ``cdtype`` (the reference's ``_fix_cache_dtypes``); the
+# recurrent ``state`` and ``h`` are float32
+_CDTYPE_LEAVES = ("k", "v", "ck", "cv", "conv", "tm_prev", "cm_prev")
+
+
+def _zero_cache(specs: dict, cdtype: torch.dtype, dev) -> dict:
+    """A zeroed cache for a spec tree; ``slot_pos`` at a large POSITIVE
+    sentinel, so empty slots fail ``spos <= pos``.  (Module level: a
+    recursive closure would hold the model in a reference cycle.)"""
     out = {}
-    for name, leaf in tree.items():
-        if isinstance(leaf, dict):
-            out[name] = _fix_cache_dtypes(leaf, cdtype)
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            out[name] = _zero_cache(spec, cdtype, dev)
         elif name == "slot_pos":
-            out[name] = torch.full(leaf.shape, 2 ** 30, dtype=torch.int32,
-                                   device=leaf.device)
-        elif name in ("k", "v"):
-            out[name] = leaf.to(cdtype)
+            out[name] = torch.full(spec.shape, 2 ** 30, dtype=torch.int32,
+                                   device=dev)
         else:
-            out[name] = leaf
+            dt = cdtype if name in _CDTYPE_LEAVES else torch.float32
+            out[name] = torch.zeros(spec.shape, dtype=dt, device=dev)
     return out
 
 

@@ -102,6 +102,42 @@ def lm_pair(arch, seed=0, **over):
     return jm, jparams, pm
 
 
+def np_params(specs, seed):
+    """A parameter tree drawn with numpy from a port spec tree: normal
+    leaves at their scale, uniform ones in +-scale, zeros and ones as
+    named.  Cheaper than the reference's ``Model.init`` (eager
+    ``jax.random``, seconds a model)."""
+    from repro_torch.models.params import ParamSpec
+
+    rng = np.random.default_rng(seed)
+
+    def draw(s):
+        if isinstance(s, dict):
+            return {k: draw(v) for k, v in sorted(s.items())}
+        assert isinstance(s, ParamSpec)
+        if s.init in ("zeros", "ones"):
+            return np.full(s.shape, s.init == "ones", np.float32)
+        if s.init == "uniform":
+            return rng.uniform(-s.scale, s.scale, s.shape).astype(np.float32)
+        return (rng.standard_normal(s.shape) * s.scale).astype(np.float32)
+
+    return draw(specs)
+
+
+def lm_pair_np(arch, seed=0, **over):
+    """As :func:`lm_pair`, with the parameters drawn by :func:`np_params`:
+    (reference Model, its params as jnp arrays, port Model on the CPU)."""
+    from repro.models import Model as JaxModel
+    from repro_torch.models import Model
+
+    jcfg, pcfg = lm_cfgs(arch, **over)
+    pm = Model(pcfg)
+    tree = np_params(pm.param_specs(), seed)
+    pm.load_state_dict(convert.lm_params_from_numpy(pcfg, tree, "cpu"),
+                       assign=True)
+    return JaxModel(jcfg), jax.tree.map(jnp.asarray, tree), pm
+
+
 def to_np(tree):
     """A tree of JAX arrays or torch tensors as numpy."""
     if isinstance(tree, dict):

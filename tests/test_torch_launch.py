@@ -3,7 +3,8 @@
 
 LM serving: the reference's ``make_prefill_step``/``make_serve_step`` greedy
 loop and the port's ``generate`` over the same smoke parameters give the
-same tokens, and logits within 1e-4, in float32 on the CPU.  Decomposition
+same tokens, and logits within 1e-4, in float32 on the CPU; each of the six
+other families' ``serve`` gives the reference ``serve``'s tokens.  Decomposition
 serving: ``cpd_config`` gives the reference's RunConfig, key for key, and
 ``serve_cpd`` equals a Session on that config.  No model here is wider than
 ``smoke_of``; entry points are asked for the CPU by name, and raise without
@@ -25,6 +26,7 @@ from repro.launch.steps import make_cpals_step as jax_make_cpals_step
 from repro.launch.steps import make_prefill_step as jax_make_prefill_step
 from repro.launch.steps import make_serve_step as jax_make_serve_step
 from repro.plan import plan_decomposition as jax_plan
+from repro_torch import convert
 from repro_torch.api import Session
 from repro_torch.core import build_workspace
 from repro_torch.core.cpals import _iteration
@@ -33,7 +35,8 @@ from repro_torch.launch.steps import make_cpals_step
 from repro_torch.models import Model
 from repro_torch.plan import plan_decomposition
 
-from test_torch_helpers import both_tensors, lm_cfgs, lm_pair, np_coo, np_factors
+from test_torch_helpers import (both_tensors, lm_cfgs, lm_pair, np_coo,
+                                np_factors, np_params)
 
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE_MODELS = {
@@ -97,10 +100,71 @@ def test_serve_draws_the_reference_prompts_on_the_cpu():
     assert torch.equal(out["logits"], again["logits"])
 
 
+FAMILIES = ("rwkv6-3b", "recurrentgemma-9b", "qwen2-vl-7b",
+            "seamless-m4t-large-v2", "dbrx-132b", "kimi-k2-1t-a32b")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_matches_reference_serve(arch, monkeypatch):
+    """``serve`` of each family's smoke model in both packages, batch 2,
+    prompt 10, 5 tokens: each package's own prompts, embeddings, M-RoPE
+    positions and source frames from the seed, the same numpy-drawn
+    parameters handed to both (each launcher's model class made to load
+    them), the same greedy tokens."""
+    _, pcfg = lm_cfgs(arch)
+    tree = np_params(Model(pcfg).param_specs(), 1)
+
+    class RefModel(jserve.Model):
+        def init(self, key):
+            return jax.tree.map(jnp.asarray, tree)
+
+    class PortModel(Model):
+        def init(self, generator=None, device=None):
+            self.load_state_dict(convert.lm_params_from_numpy(
+                self.cfg, tree, device), assign=True)
+            return self
+
+    monkeypatch.setattr(jserve, "Model", RefModel)
+    monkeypatch.setattr(pserve, "Model", PortModel)
+    kw = dict(smoke=True, batch=2, prompt_len=10, gen=5, seed=2)
+    want = jserve.serve(arch, **kw)
+    got = pserve.serve(arch, device="cpu", **kw)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    assert got["logits"].shape == (2, 5, pcfg.vocab)
+    assert torch.isfinite(got["logits"]).all()
+    assert set(got["metrics"]) == (
+        {"moe_drop_frac", "moe_balance_loss"} if pcfg.moe else set())
+
+
+def test_serve_batch_builds_the_reference_inputs():
+    """``serve_batch``: embeddings through the table, M-RoPE positions
+    0..S-1 on all three streams, 16 source frames drawn after the
+    prompts."""
+    for arch in ("qwen2-vl-7b", "seamless-m4t-large-v2"):
+        _, cfg = lm_cfgs(arch)
+        model = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(4)
+        prompts = rng.integers(0, cfg.vocab, (3, 7), dtype=np.int32)
+        batch = pserve.serve_batch(model, prompts, rng)
+        again = np.random.default_rng(4)
+        again.integers(0, cfg.vocab, (3, 7), dtype=np.int32)
+        if cfg.input_mode == "embeds":
+            assert set(batch) == {"embeds", "positions"}
+            assert torch.equal(batch["embeds"],
+                               model.embed.table[torch.as_tensor(prompts)
+                                                 .long()])
+            assert torch.equal(batch["positions"][2, 1],
+                               torch.arange(7, dtype=torch.int32))
+            assert batch["positions"].shape == (3, 3, 7)
+        else:
+            assert set(batch) == {"tokens", "src_embeds"}
+            assert batch["src_embeds"].shape == (3, pserve.SRC_LEN, 64)
+            np.testing.assert_array_equal(
+                batch["src_embeds"].numpy(),
+                again.standard_normal((3, 16, 64), dtype=np.float32))
+
+
 def test_serve_refuses_what_it_cannot_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 10b-1"):
-        pserve.serve("rwkv6-3b", smoke=True, batch=1, prompt_len=4, gen=2,
-                     device="cpu")
     # no card: the default device raises, it never carries on on the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
