@@ -216,7 +216,26 @@ Phases; any failure raises and exits non-zero:
    MoE dispatch's sorts and scatters); and each family's ``smoke_of``
    model in float32, card against CPU, within 1e-4 and the same greedy
    tokens.  No hand-written kernel here either.
-20. One JSON line of kernel numbers, then, as the last line,
+20. LM training (``lm-train``), llama3.2-3b at full width: in float32
+   (batch 1), a directional-derivative check of ``Model.loss``'s backward
+   at sequences 256 and 4096 (the flash path, recomputed under remat):
+   ``(L(p + e d) - L(p - e d)) / 2e`` against ``<grad L, d>`` with ``d =
+   grad L / |grad L|`` and ``e |grad L| = 1e-2``, within a relative 1e-2;
+   then in bfloat16 at train_4k's sequence length, 4 sequences of 4096 a
+   step from ``TokenPipeline`` in 4 micro-batches, remat on:
+   ``make_train_step`` with AdamW for 8 steps (seconds, tokens/s, loss,
+   the share of the card's bfloat16 dense peak that ``6 N tokens`` would
+   take, the peak GB; every loss finite, and the loss of the first step's
+   batch, taken again after the 8 steps, below its first value), one
+   step under ``torch.profiler`` (kernels, busy share, the kernels with the
+   most device time), a step's forward, backward, accumulation and
+   optimizer timed apart by CUDA events; 2 Adafactor steps, and 2 Adafactor steps with int8 gradient compression
+   (peak GB, the compression ratio); every preset's ``smoke_of`` in float32,
+   one AdamW step on the card and on the CPU from the same parameters
+   (loss within 1e-5, every parameter within 1e-4); and ``train()`` at
+   smoke width for 3 steps then resumed to 6 from its checkpoint, equal to
+   an uninterrupted 6-step run.  Training reaches no hand-written kernel.
+21. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -267,6 +286,16 @@ FAMILY_BATCH = 4
 FAMILY_GEN = 16
 FAMILY_PROFILE_PROMPT = 512
 # NVIDIA H100 SXM data sheet (dense, no sparsity) at the full 700 W limit
+# phase 20: train_4k's sequence length, 4 sequences a step in 4 micro-batches
+# (one sequence each: 51.4 GB of weights, gradients, AdamW moments and the
+# float32 accumulator before activations; PERF.md §4)
+TRAIN_BATCH = 4
+TRAIN_SEQ = 4096
+TRAIN_MICRO = 4
+TRAIN_STEPS = 8
+TRAIN_EXTRA_STEPS = 2
+TRAIN_DD_SEQS = (256, 4096)
+BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
@@ -1232,15 +1261,20 @@ def smoke_card_vs_cpu(torch, dev, card: str, arch: str, seed: int,
 DISPATCH_KERNELS = re.compile(r"sort|Sort|search|index|scatter|gather")
 
 
-def profiled(torch, fn, calls: int) -> dict:
+def profiled(torch, fn, calls: int, *, cpu: bool = True) -> dict:
     """``fn(i)`` for i < ``calls`` under torch.profiler: kernels a call,
-    their device ms a call against the wall's, and the MoE dispatch's
-    share (kernels and device ms a call)."""
+    their device ms a call against the wall's, the MoE dispatch's share
+    (kernels and device ms a call), and the kernels with the most device
+    time (name, count, ms over the calls).  ``cpu=False`` traces the card
+    alone: a training step's 70 000 kernels and their CPU ops take the
+    profiler over a minute to process, the kernels alone about 20 s."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for i in range(calls):
             fn(i)
@@ -1249,7 +1283,9 @@ def profiled(torch, fn, calls: int) -> dict:
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     dispatch = [ev for ev in kernels if DISPATCH_KERNELS.search(ev.key)]
-    return {"kernels": sum(ev.count for ev in kernels) / calls,
+    top = sorted(kernels, key=lambda ev: -ev.device_time_total)[:6]
+    return {"top": [(ev.key, ev.count, ev.device_time_total / 1e3)
+                    for ev in top],"kernels": sum(ev.count for ev in kernels) / calls,
             "device_ms": sum(ev.device_time_total for ev in kernels)
             / 1e3 / calls,
             "wall_ms": wall * 1e3 / calls,
@@ -1468,6 +1504,301 @@ def lm_families(torch, dev, card: str, seed: int) -> float:
     # 19.4: each family's smoke model in float32, card against CPU
     for arch, _ in FAMILY_PROMPTS:
         smoke_card_vs_cpu(torch, dev, card, arch, seed, "families")
+    return time.perf_counter() - start
+
+
+def _loss_and_grads(model, batch: dict):
+    """``model.loss(batch)`` and its backward, the gradients left in
+    ``.grad``; returns the loss as a float."""
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss(batch)
+    loss.backward()
+    return loss.item()
+
+
+def directional_check(torch, model, batch: dict, card: str) -> None:
+    """``Model.loss``'s backward against a central difference along the
+    gradient: ``(L(p + e d) - L(p - e d)) / 2e`` with ``d = g / |g|`` is
+    ``|g|`` within a relative 1e-2, ``e |g| = 1e-2`` (float32)."""
+    seq = batch["labels"].shape[1]
+    loss, bwd_s = synced(torch, lambda: _loss_and_grads(model, batch))
+    params = list(model.parameters())
+    gnorm = math.sqrt(sum(float(torch.sum(p.grad.double() ** 2))
+                          for p in params))
+    eps = 1e-2 / gnorm
+
+    def shifted(scale):
+        with torch.no_grad():
+            for p in params:
+                p.add_(p.grad, alpha=scale * eps / gnorm)
+            return float(model.loss(batch)[0])
+
+    up = shifted(1.0)
+    down = shifted(-2.0)
+    shifted(1.0)
+    model.zero_grad(set_to_none=True)
+    fd = (up - down) / (2 * eps)
+    rel = abs(fd - gnorm) / gnorm
+    print(f"[train] {model.cfg.name} float32 at full width, batch 1, "
+          f"sequence {seq}: loss {loss:.6f}, forward + backward "
+          f"{bwd_s:.4f} s; |grad| {gnorm:.6e}, central difference along "
+          f"grad/|grad| (e = {eps:.3e}) {fd:.6e}: relative error {rel:.3e} "
+          f"(limit 1e-2) on {card}")
+    if not rel <= 1e-2:
+        raise AssertionError(f"directional derivative at sequence {seq}: "
+                             f"relative error {rel:.3e} > 1e-2")
+
+
+def _event_ms(torch, fn):
+    """``fn()`` between two CUDA events: (its result, the ms between them
+    on the card)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _phase_split(torch, model, opt, state: dict, batch: dict,
+                 step: int) -> dict:
+    """Card ms of one train step's parts (CUDA events around each, the
+    card synchronised between them), as ``make_train_step`` runs them: per
+    micro-batch the forward (the loss) and the backward, the float32
+    accumulation of ``g / m``, then the optimizer's update (clip +
+    AdamW)."""
+    from repro_torch.launch.steps import _split_micro
+    from repro_torch.models.params import tree_map, tree_walk
+
+    params = model.params()
+    split = dict.fromkeys(("forward", "backward", "accumulate", "optimizer"),
+                          0.0)
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+
+    def accumulate():
+        for a, p in tree_walk(acc, params):
+            a.add_(p.grad.float() / TRAIN_MICRO)
+            p.grad = None
+
+    micro = _split_micro(batch, TRAIN_MICRO)
+    for i in range(TRAIN_MICRO):
+        (loss, _), ms = _event_ms(torch, lambda: model.loss(
+            {k: v[i] for k, v in micro.items()}))
+        split["forward"] += ms
+        split["backward"] += _event_ms(torch, loss.backward)[1]
+        del loss
+        split["accumulate"] += _event_ms(torch, accumulate)[1]
+    split["optimizer"] += _event_ms(torch, lambda: opt.update(
+        acc, state, params, step))[1]
+    return split
+
+
+def _smoke_train_card_vs_cpu(torch, dev, card: str, seed: int) -> None:
+    """Every preset's ``smoke_of`` in float32: one AdamW train step (batch
+    4, 32 positions) from the same parameters on the card and the CPU:
+    the loss within 1e-5 and every updated parameter within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+
+    for arch in configs.ARCH_NAMES:
+        scfg = configs.smoke_of(configs.get(arch))
+        cpu = Model(scfg).init(torch.Generator().manual_seed(seed), "cpu")
+        on_card = Model(scfg)
+        on_card.load_state_dict({k: v.to(dev, copy=True) for k, v in
+                                 cpu.state_dict().items()}, assign=True)
+        batch = TokenPipeline(scfg, 4, 32, seed, device="cpu").batch_at(0)
+        losses = []
+        for m in (cpu, on_card):
+            opt = adamw(lr=1e-3)
+            _, met = make_train_step(m, opt)(
+                opt.init(m.params()),
+                {k: v.to(m.device) for k, v in batch.items()}, 0)
+            losses.append(float(met["loss"]))
+        want = cpu.state_dict()
+        perr = max(float((p.cpu() - want[k]).abs().max())
+                   for k, p in on_card.state_dict().items())
+        lerr = abs(losses[1] - losses[0])
+        print(f"[train] {scfg.name} float32 AdamW step, batch 4 x 32: card "
+              f"vs CPU loss {lerr:.3e} (limit 1e-5), parameters max |diff| "
+              f"{perr:.3e} (limit 1e-4) on {card}")
+        if not (lerr <= 1e-5 and perr <= 1e-4):
+            raise AssertionError(f"{scfg.name}: the card's train step "
+                                 f"differs from the CPU's")
+
+
+def _resume_on_card(torch, dev, card: str, seed: int) -> None:
+    """``train()`` at smoke width on the card: 3 steps, then resumed to 6
+    from the checkpoint, against an uninterrupted 6-step run."""
+    import numpy as np
+
+    from repro_torch.launch.train import train
+
+    kw = dict(smoke=True, batch=4, seq=64, seed=seed, log_every=100,
+              device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            whole = train(LM_ARCH, steps=6, ckpt_dir=f"{tmp}/whole", **kw)
+            train(LM_ARCH, steps=3, ckpt_dir=f"{tmp}/split", **kw)
+            split = train(LM_ARCH, steps=6, ckpt_dir=f"{tmp}/split", **kw)
+        arrays = []
+        for run in ("whole", "split"):
+            with np.load(Path(tmp) / run / "step_00000006" /
+                         "shard0.npz") as data:
+                arrays.append([data[f"a{i}"] for i in range(len(data.files))])
+    lerr = max(abs(a - b) for a, b in zip(split["losses"],
+                                          whole["losses"][3:]))
+    perr = max(float(np.abs(a - b).max()) for a, b in zip(*arrays))
+    resumed = "[train] resumed from step 3" in out.getvalue()
+    print(f"[train] train() smoke {LM_ARCH}, 3 steps then resumed to 6 "
+          f"(resumed={resumed}) vs 6 steps: losses max |diff| {lerr:.3e}, "
+          f"saved arrays max |diff| {perr:.3e} (limits 1e-6) on {card}")
+    if not (resumed and split["steps"] == 3 and lerr <= 1e-6
+            and perr <= 1e-6):
+        raise AssertionError("train(): the resumed run differs from the "
+                             "uninterrupted one")
+
+
+def lm_training(torch, dev, card: str, seed: int) -> float:
+    """Phase 20: LM training, llama3.2-3b at full width (see the module
+    docstring).  Returns the phase's seconds."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.dist.compress import compression_ratio
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adafactor, adamw
+
+    start = time.perf_counter()
+    cfg = configs.get(LM_ARCH)
+
+    # 20.1: float32, batch 1: the backward against a central difference
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(f32).init(torch.Generator(device=dev).manual_seed(seed),
+                            dev)
+    for seq in TRAIN_DD_SEQS:
+        directional_check(torch, model, TokenPipeline(
+            f32, 1, seq, seed, device=dev).batch_at(0), card)
+    print(f"[train] float32 checks: peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 20.2: bfloat16 at train_4k's sequence length, AdamW
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                            dev)
+    params = model.params()
+    n = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n * tokens
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed, device=dev)
+    print(f"[train] {LM_ARCH} bfloat16: {n} parameters, {tokens} tokens a "
+          f"step ({TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} micro-batches)"
+          f", remat {cfg.remat_policy if cfg.remat else 'off'}; 6 N tokens = "
+          f"{flops:.4e} FLOP a step on {card}")
+
+    def run(opt, steps: int, first: int, what: str, **kw):
+        state = opt.init(params)
+        if kw.get("grad_compress"):
+            from repro_torch.dist.compress import init_error_feedback
+            state = dict(state, ef=init_error_feedback(params))
+        step_fn = make_train_step(model, opt, micro_batches=TRAIN_MICRO,
+                                  **kw)
+        losses = []
+        for i in range(first, first + steps):
+            batch = pipe.batch_at(i)
+            (state, met), sec = synced(torch, lambda: step_fn(state, batch,
+                                                               i))
+            losses.append(float(met["loss"]))
+            print(f"[train] {what} step {i}: {sec:.4f} s, "
+                  f"{tokens / sec:.1f} tokens/s, loss {losses[-1]:.6f}, "
+                  f"6 N tokens at the bf16 dense peak "
+                  f"{flops / BF16_FLOP_PER_S:.4f} s = "
+                  f"{flops / BF16_FLOP_PER_S / sec:.4f} of the step on {card}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{what}: a loss is not finite: {losses}")
+        return losses, state, step_fn
+
+    # what the model learns: the first step's batch and one it never sees,
+    # one sequence each, before and after the steps (each step's own loss
+    # is on a new batch, and moves less than the batches differ)
+    def held(index: int) -> float:
+        with torch.no_grad():
+            return model.loss({k: v[:1] for k, v in
+                               pipe.batch_at(index).items()})[0].item()
+
+    before = held(0), held(TRAIN_STEPS + 4)
+    losses, state, step_fn = run(adamw(lr=3e-4), TRAIN_STEPS, 0, "AdamW")
+    after = held(0), held(TRAIN_STEPS + 4)
+    print(f"[train] AdamW {TRAIN_STEPS} steps: step loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; the first batch's first sequence "
+          f"{before[0]:.6f} -> {after[0]:.6f}, an unseen batch's "
+          f"{before[1]:.6f} -> {after[1]:.6f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}")
+    if not after[0] < before[0]:
+        raise AssertionError(f"AdamW: the loss on the first batch did not "
+                             f"fall: {before[0]} -> {after[0]}")
+
+    # 20.3: where a step's time goes
+    prof = profiled(torch, lambda i: step_fn(
+        state, pipe.batch_at(TRAIN_STEPS + i), TRAIN_STEPS + i), 1,
+        cpu=False)
+    print(f"[train] one AdamW step under torch.profiler (the card's "
+          f"activity alone): "
+          f"{prof['kernels']:.0f} kernels, device {prof['device_ms']:.3f} ms "
+          f"of {prof['wall_ms']:.3f} ms wall (busy share "
+          f"{prof['device_ms'] / prof['wall_ms']:.3f}); the kernels with the "
+          f"most device time: "
+          + "; ".join(f"{name[:60]} x{n} {ms:.1f} ms"
+                      for name, n, ms in prof["top"]) + f" on {card}")
+    del step_fn
+    split = _phase_split(torch, model, adamw(lr=3e-4), state,
+                         pipe.batch_at(TRAIN_STEPS + 1), TRAIN_STEPS + 1)
+    print("[train] the step's parts, CUDA-event ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" (sum {sum(split.values()):.3f}) on {card}")
+    del state
+    torch.cuda.empty_cache()
+
+    # 20.4: Adafactor, then Adafactor with int8 gradient compression (the
+    # AdamW moments, the residual and the accumulator together leave too
+    # little of 80 GB for the activations)
+    for what, kw in (("Adafactor", {}),
+                     ("Adafactor + int8 compression",
+                      {"grad_compress": True})):
+        torch.cuda.reset_peak_memory_stats()
+        first = TRAIN_STEPS + 2 + (2 if kw else 0)
+        losses, state, step_fn = run(adafactor(), TRAIN_EXTRA_STEPS, first,
+                                     what, **kw)
+        ratio = ""
+        if kw:
+            acc = {k: torch.empty(p.shape, dtype=torch.float32,
+                                  device="meta")
+                   for k, p in model.named_parameters()}
+            ratio = (f", compression ratio of the float32 gradient tree "
+                     f"{compression_ratio(acc):.4f}")
+        print(f"[train] {what}: peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB{ratio} on "
+              f"{card}")
+        del state, step_fn
+        torch.cuda.empty_cache()
+    del model, params
+    torch.cuda.empty_cache()
+
+    # 20.5: smoke width, card against CPU; 20.6: resume on the card
+    _smoke_train_card_vs_cpu(torch, dev, card, seed)
+    _resume_on_card(torch, dev, card, seed)
     return time.perf_counter() - start
 
 
@@ -2278,7 +2609,10 @@ def main() -> int:
     # --- 19. the other LM families at their published widths -------------
     families_s = lm_families(torch, dev, card, args.seed)
 
-    # --- 20. results --------------------------------------------------------
+    # --- 20. LM training: llama3.2-3b at full width ------------------------
+    train_s = lm_training(torch, dev, card, args.seed)
+
+    # --- 21. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",
@@ -2317,6 +2651,7 @@ def main() -> int:
     print(f"[lm] the LM serving phase ran {lm_s:.1f} s on {card}")
     print(f"[families] the LM families phase ran {families_s:.1f} s on "
           f"{card}")
+    print(f"[train] the LM training phase ran {train_s:.1f} s on {card}")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

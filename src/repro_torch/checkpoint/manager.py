@@ -104,9 +104,13 @@ def unflatten(like, leaves):
 
 def _to_host(v) -> np.ndarray:
     """A host copy of a leaf: a later in-place update of the caller's
-    tensor cannot reach a snapshot waiting for the save thread."""
+    tensor cannot reach a snapshot waiting for the save thread.  numpy has
+    no bfloat16, so a bfloat16 leaf is widened (exactly) to float32."""
     if isinstance(v, torch.Tensor):
-        return v.detach().to("cpu", copy=True).numpy()
+        v = v.detach()
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        return v.to("cpu", copy=True).numpy()
     return np.array(v)
 
 

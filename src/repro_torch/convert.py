@@ -162,12 +162,24 @@ def lm_params_from_numpy(cfg, tree, device: DeviceLike = None) -> dict:
     return sd
 
 
+def _tree_from_numpy(tree, dev: torch.device) -> dict:
+    return {k: _tree_from_numpy(v, dev) if isinstance(v, dict)
+            else _leaf_to_torch(v, dev) for k, v in tree.items()}
+
+
 def lm_cache_from_numpy(tree, device: DeviceLike = None) -> dict:
     """A decode cache (nested dicts of numpy arrays) as the port's nested
     dicts of tensors on ``device``."""
-    dev = resolve_device(device)
-    return {k: lm_cache_from_numpy(v, dev) if isinstance(v, dict)
-            else _leaf_to_torch(v, dev) for k, v in tree.items()}
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def lm_opt_state_from_numpy(tree, device: DeviceLike = None) -> dict:
+    """An LM optimizer state (nested dicts of numpy arrays at the
+    reference's paths: AdamW's ``m``/``v``, Adafactor's ``stats`` of
+    ``vr``/``vc`` or ``v``, the ``ef`` residual of gradient compression) as
+    the port's tree of tensors on ``device``, as the port's optimizers
+    ``init`` it."""
+    return _tree_from_numpy(tree, resolve_device(device))
 
 
 def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -190,7 +202,17 @@ def lm_params_to_numpy(model) -> dict:
     return out
 
 
+def _tree_to_numpy(tree) -> dict:
+    return {k: _tree_to_numpy(v) if isinstance(v, dict)
+            else _tensor_to_numpy(v) for k, v in tree.items()}
+
+
 def lm_cache_to_numpy(cache) -> dict:
     """A port decode cache as nested dicts of numpy arrays."""
-    return {k: lm_cache_to_numpy(v) if isinstance(v, dict)
-            else _tensor_to_numpy(v) for k, v in cache.items()}
+    return _tree_to_numpy(cache)
+
+
+def lm_opt_state_to_numpy(state) -> dict:
+    """A port LM optimizer state as nested dicts of numpy arrays, at the
+    reference's paths."""
+    return _tree_to_numpy(state)

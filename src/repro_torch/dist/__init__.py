@@ -15,8 +15,10 @@
     drivers (``ExecConfig.monitor``), with the step times exchanged across
     ranks by ``record_step_times``.
 
-The reference's gradient compression (``compress``) belongs to its LM
-training path and comes with it.
+``compress``
+    int8 gradient compression with error feedback over nested dicts of
+    tensors (:func:`compress_grads_int8`, :func:`decompress_grads_int8`),
+    used by the LM train step's ``grad_compress``.
 """
 from .collectives import (CPAxes, MODEL_AXIS, Mesh, axis_product, batch_axes,
                           cpals_axes, gather_rows, make_mesh, pgram,

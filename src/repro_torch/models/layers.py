@@ -240,14 +240,27 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         m_new = torch.maximum(m_old, sc.amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m_old - m_new)
-        l[:, lo:hi] = l[:, lo:hi] * corr + p.sum(dim=-1)
-        acc[:, lo:hi] = acc[:, lo:hi] * corr[..., None] + torch.einsum(
+        l_new = l[:, lo:hi] * corr + p.sum(dim=-1)
+        acc_new = acc[:, lo:hi] * corr[..., None] + torch.einsum(
             "bnhqk,bkhd->bnhqd", p.to(vblk.dtype), vblk).float()
-        m[:, lo:hi] = m_new
+        # the carries are rebuilt, never written in place: autograd saved
+        # the old ones for the backward pass
+        m = _splice(m, m_new, lo, hi)
+        l = _splice(l, l_new, lo, hi)
+        acc = _splice(acc, acc_new, lo, hi)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     # (B, nq, H, qb, hd) -> (B, nq, qb, H, hd), cast inside the block
     out = out.permute(0, 1, 3, 2, 4).to(q.dtype)
     return out.reshape(b, s, h, hd)
+
+
+def _splice(carry: torch.Tensor, new: torch.Tensor, lo: int,
+            hi: int) -> torch.Tensor:
+    """``carry`` with its q blocks ``[lo, hi)`` (dim 1) replaced by
+    ``new``, out of place."""
+    if lo == 0 and hi == carry.shape[1]:
+        return new
+    return torch.cat([carry[:, :lo], new, carry[:, hi:]], dim=1)
 
 
 def _dead_block(cfg: ModelConfig, mask_kind: str, qi: int, ki: int, qb: int,

@@ -47,6 +47,16 @@ def tree_items(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+def tree_walk(tree: Any, *rest: Any) -> Iterator[tuple]:
+    """``(leaf, the node of each of rest at the leaf's path)`` for every
+    leaf of ``tree``, in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_walk(tree[k], *(r[k] for r in rest))
+    else:
+        yield (tree, *rest)
+
+
 def stack_specs(spec_tree, n: int) -> Any:
     """Prepend a stacked 'layers' dim of length n to every leaf."""
     return tree_map(

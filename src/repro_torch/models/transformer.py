@@ -19,11 +19,20 @@ Every block kind runs: ``attn``, ``moe`` (``moe.py``), ``rec`` (RG-LRU,
 (M-RoPE positions ride in the batch) and the encoder-decoder (its encoder
 runs on ``src_embeds``; the decoder's cross K/V are cached at prefill).
 Every cache, recurrent states included, is written in place, so a cache
-tree's tensors stay the same objects from step to step.  The training loss
-raises ``NotImplementedError`` naming its ROADMAP item.
+tree's tensors stay the same objects from step to step.
+
+Training: :meth:`Model.loss` is the reference's float32 cross-entropy (whole
+logits, or ``cfg.chunked_loss`` positions at a time), and gradients come from
+``torch.autograd``.  Under ``cfg.remat`` a training forward recomputes each
+rep of the stacked body in the backward pass
+(``torch.utils.checkpoint``); ``remat_policy="dots"`` keeps the products
+without batch dims, as JAX's ``dots_with_no_batch_dims_saveable`` does.
+Each stacked leaf is split into its reps once a forward (``unbind``), so its
+gradient is one ``stack`` of the reps' gradients.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -38,10 +47,6 @@ from . import rwkv as RW
 from .config import ModelConfig
 from .params import (ParamSpec, abstract_params, init_params, stack_specs,
                      tree_map)
-
-# the ROADMAP item that holds what this package does not run yet
-TRAIN_ITEM = "ROADMAP §1 item 10b-2"
-
 
 # ---------------------------------------------------------------------------
 # per-block specs
@@ -290,8 +295,9 @@ class Model(nn.Module):
         x = batch["src_embeds"].to(cfg.cdtype)
         enc = params["encoder"]
         ctx = {"mask_kind": _block_mask_kind(cfg, "attn", encoder=True)}
+        reps = tree_map(lambda a: a.unbind(0), enc["stack"])
         for r in range(cfg.enc_layers):
-            unit = tree_map(lambda a: a[r], enc["stack"])
+            unit = tree_map(lambda a: a[r], reps)
             x, _, _ = apply_block("attn", unit["b0"], cfg, x, ctx)
         return L.apply_norm(enc["final_norm"], cfg, x)
 
@@ -332,18 +338,25 @@ class Model(nn.Module):
 
         if self.prefix_kinds:
             x = run_unstacked(x, "prefix", self.prefix_kinds, "p")
-        # the stacked body, one rep at a time (the reference's scan); the
-        # cache's stacked tensors are written in place through the views
-        stack_mets: dict[str, list] = {}
-        for r in range(self.reps):
-            unit = tree_map(lambda a: a[r], params["stack"])
-            ucache = (tree_map(lambda a: a[r], cache["stack"])
-                      if use_cache else None)
+
+        def run_unit(x, unit, ucache):
             mets: dict = {}
             for i, kind in enumerate(self.pattern):
                 c = ucache[f"b{i}"] if use_cache else None
                 x, _, met = run_block(kind, unit[f"b{i}"], x, c)
                 mets.update(met)
+            return x, mets
+
+        if cfg.remat and mode == "train":
+            run_unit = _remat(run_unit, cfg.remat_policy)
+        # the stacked body, one rep at a time (the reference's scan); the
+        # cache's stacked tensors are written in place through the views
+        reps = tree_map(lambda a: a.unbind(0), params["stack"])
+        stack_mets: dict[str, list] = {}
+        for r in range(self.reps):
+            ucache = (tree_map(lambda a: a[r], cache["stack"])
+                      if use_cache else None)
+            x, mets = run_unit(x, tree_map(lambda a: a[r], reps), ucache)
             for k, v in mets.items():
                 stack_mets.setdefault(k, []).append(v)
         if stack_mets:
@@ -368,9 +381,33 @@ class Model(nn.Module):
         return L.unembed(params["embed"], cfg, x), out_cache, metrics
 
     # -- public steps ---------------------------------------------------------
-    def loss(self, batch):
-        raise NotImplementedError(f"Model.loss (training) is not ported yet "
-                                  f"({TRAIN_ITEM})")
+    def loss(self, batch: dict):
+        """Mean next-token cross-entropy over the labels ``>= 0``, in
+        float32: ``(ce, metrics)``, the metrics the forward's with ``loss``
+        added (the MoE ones are reported, not added to the loss).  With
+        ``cfg.chunked_loss`` the (B, S, V) logits are never whole: the
+        unembedding and the cross-entropy run one sequence chunk at a
+        time."""
+        cfg = self.cfg
+        labels = batch["labels"]
+        if cfg.chunked_loss:
+            x, _, metrics = self.forward(batch, mode="hidden")
+            c = cfg.chunked_loss
+            s = x.shape[1]
+            if s % c:
+                raise ValueError(f"sequence {s} is not a multiple of "
+                                 f"chunked_loss {c}")
+            emb = self.params()["embed"]
+            tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i in range(0, s, c):
+                t, n = _ce_sums(L.unembed(emb, cfg, x[:, i:i + c]),
+                                labels[:, i:i + c])
+                tot, cnt = tot + t, cnt + n
+        else:
+            logits, _, metrics = self.forward(batch, mode="train")
+            tot, cnt = _ce_sums(logits, labels)
+        ce = tot / torch.clamp(cnt, min=1.0)
+        return ce, dict(metrics, loss=ce)
 
     @torch.no_grad()
     def prefill(self, batch: dict, cache: dict):
@@ -400,6 +437,46 @@ class Model(nn.Module):
         logits, new_cache, _ = self.forward(batch, mode="decode",
                                             cache=cache, pos=pos)
         return logits, new_cache
+
+
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of the float32 cross-entropy over the labels >= 0, their
+    count).  A masked label gathers class 0; its term is multiplied by 0."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    labels = labels.long()
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable`` in torch's ops: keep a
+    product with no batch dims (``mm``, or the batch-of-one ``bmm`` that
+    ``einsum`` folds a projection into); recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op is aten.mm.default or (op is aten.bmm.default
+                                 and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` recomputed in the backward pass (the reference's
+    ``jax.checkpoint``): everything under ``"full"``, all but the products
+    without batch dims under ``"dots"``."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    # the model draws no random numbers: no RNG state to replay
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
 
 
 # the leaves in ``cdtype`` (the reference's ``_fix_cache_dtypes``); the

@@ -29,6 +29,16 @@ three hard parts explicit:
   swapped-out or evicted model's graphs, and their private memory pools,
   go when the last reference to the model goes.
 
+Captures are one at a time in the process (:class:`_CaptureGuard`): a
+capture starts with a device synchronisation, a collection and an
+``empty_cache`` (``torch.cuda.graph``), which fail, and invalidate the
+other capture, while another thread captures; this happens when a
+republish under load makes the new model and the old one capture at
+once.  For the same reason a graph's teardown (its executable, its private
+memory pool) must not overlap a capture: the old model's graphs die in
+whichever worker drops the last reference, so a graph that dies during a
+capture waits in a graveyard and is released when the capture ends.
+
 A graph's static buffers (and their pinned host copies) are shared state,
 so each graph has its own lock around copy-in, replay and copy-out, which
 ends in a stream synchronisation: two workers never race on one graph's
@@ -42,6 +52,7 @@ Metrics (``repro_torch.obs``): ``serve.registry.models`` /
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -75,6 +86,45 @@ class _Eager:
         return tuple(o.numpy() for o in outs)
 
 
+class _CaptureGuard:
+    """One capture at a time in the process, and the graphs that died
+    during one: a release waits until no capture runs, and a capture waits
+    for a release in progress."""
+
+    def __init__(self):
+        self._capture = threading.Lock()  # one capture at a time
+        # re-entrant: a release may drop the last reference to another
+        # graph in the same thread
+        self._lock = threading.RLock()
+        self._active = False
+        self._graveyard: list = []
+
+    @contextlib.contextmanager
+    def capturing(self):
+        with self._capture:
+            with self._lock:
+                self._active = True
+            try:
+                yield
+            finally:
+                with self._lock:
+                    self._active = False
+                    dead, self._graveyard = self._graveyard, []
+                    for graph in dead:
+                        graph.release()
+
+    def bury(self, graph) -> None:
+        """Release ``graph`` now, or keep it until the capture ends."""
+        with self._lock:
+            if self._active:
+                self._graveyard.append(graph)
+            else:
+                graph.release()
+
+
+_CAPTURES = _CaptureGuard()
+
+
 class _Graph:
     """A bucket variant on the card: one captured CUDA graph with static
     input and output buffers and pinned host copies of them, replayed
@@ -89,15 +139,16 @@ class _Graph:
             self._in = torch.zeros(shape, dtype=dtype, device=device)
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                for _ in range(_CAPTURE_WARMUP):
-                    fn(self._in)
-            self._graph = torch.cuda.CUDAGraph()
-            # thread_local: other workers keep launching while this thread
-            # captures; the side stream is this capture's own
-            with torch.cuda.graph(self._graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                out = fn(self._in)
+            with _CAPTURES.capturing():
+                with torch.cuda.stream(side):
+                    for _ in range(_CAPTURE_WARMUP):
+                        fn(self._in)
+                self._graph = torch.cuda.CUDAGraph()
+                # thread_local: other workers keep launching while this
+                # thread captures; the side stream is this capture's own
+                with torch.cuda.graph(self._graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    out = fn(self._in)
             torch.cuda.current_stream(device).wait_stream(side)
         self._device = device
         self._out = out if isinstance(out, tuple) else (out,)
@@ -107,6 +158,15 @@ class _Graph:
         self._out_host = tuple(torch.empty(o.shape, dtype=o.dtype,
                                            pin_memory=True)
                                for o in self._out)
+
+    def release(self) -> None:
+        """Free the graph, its pool and its buffers (no capture runs)."""
+        self._in = self._out = self._in_host = self._out_host = None
+        self._graph.reset()
+
+    def __del__(self):
+        if getattr(self, "_graph", None) is not None and _CAPTURES is not None:
+            _CAPTURES.bury(self)
 
     def __call__(self, x: np.ndarray) -> tuple[np.ndarray, ...]:
         with self._lock:
@@ -161,7 +221,7 @@ class TenantModel:
         variant = self._variants.get(key)
         if variant is not None:
             return variant
-        with self._build_lock:  # one capture at a time per model
+        with self._build_lock:  # one capture per bucket
             variant = self._variants.get(key)
             if variant is None:
                 if kind == "values_at":

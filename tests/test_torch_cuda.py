@@ -1246,6 +1246,101 @@ def test_republish_mid_load_fails_no_future_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_republishes_under_load_fail_no_future_on_card(cuda):
+    """20 republishes while 2 workers serve 4 clients of values_at and
+    top_k: each new model captures its buckets under load while the old
+    model's graphs die in the workers that drop them.  No future fails and
+    every answer is one model's."""
+    import threading
+    import time as _time
+
+    from repro_torch.serve import DecompServer
+
+    dims = (300, 200, 400)
+    models = [_card_cp(cuda, seed=s) for s in (81, 82)]
+    coords = _coords(dims, 40, 4)
+    want = [d.values_at(torch.from_numpy(coords).to(cuda)).cpu().numpy()
+            for d in models]
+    futs = []
+    with DecompServer(buckets=(4, 16, 64), max_wait_ms=1.0,
+                      workers=2) as srv:
+        srv.publish("t", models[0], dims)
+        stop = threading.Event()
+
+        def client(i):
+            while not stop.is_set():
+                n = (3, 10, 40)[i % 3]
+                futs.append(("v", srv.submit_values_at("t", coords[:n])))
+                futs.append(("k", srv.submit_top_k(
+                    "t", np.arange(n) % dims[0], k=2 + i % 3)))
+                _time.sleep(0.001)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for th in threads:
+            th.start()
+        for r in range(20):
+            _time.sleep(0.03)
+            srv.publish("t", models[(r + 1) % 2], dims)
+        _time.sleep(0.05)
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+            assert not th.is_alive()
+    assert len(futs) > 0
+    for kind, f in futs:
+        got = f.result(timeout=30)
+        if kind == "v":
+            assert any(np.array_equal(got, w[:len(got)]) for w in want)
+
+
+def test_captures_are_one_at_a_time_and_releases_wait_for_them():
+    """A second thread's capture waits for the first to end; a graph that
+    dies during a capture is released when it ends, not before (also when
+    the capture fails); with none in flight, at once."""
+    import threading
+
+    from repro_torch.serve.registry import _CaptureGuard
+
+    released, order = [], []
+
+    class Dead:
+        def __init__(self, name):
+            self.name = name
+
+        def release(self):
+            released.append(self.name)
+
+    guard = _CaptureGuard()
+    guard.bury(Dead("idle"))
+    assert released == ["idle"]
+    inside = threading.Event()
+
+    def second():
+        inside.wait(timeout=30)
+        with guard.capturing():
+            order.append("second")
+
+    th = threading.Thread(target=second)
+    th.start()
+    with guard.capturing():
+        inside.set()
+        th.join(timeout=0.2)
+        assert th.is_alive()  # waits for this capture
+        guard.bury(Dead("a"))
+        assert released == ["idle"]
+        order.append("first")
+    th.join(timeout=30)
+    assert not th.is_alive()
+    assert order == ["first", "second"] and released == ["idle", "a"]
+    with pytest.raises(RuntimeError):
+        with guard.capturing():
+            guard.bury(Dead("b"))
+            raise RuntimeError("capture failed")
+    assert released == ["idle", "a", "b"]
+
+
+@pytest.mark.cuda
 def test_dist_cp_als_at_world_size_1_on_nccl(cuda):
     """The dist executor on the card: a one-rank NCCL group the Session
     starts and ends; the fit equals the local segment fit from the same
@@ -1414,3 +1509,35 @@ def test_wkv_chunked_matches_scan_on_card(cuda):
     co, cs = wkv_chunked(r, k, v, w, u, st, chunk=128)
     torch.testing.assert_close(co, so, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(cs, ss, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "dbrx-132b", "rwkv6-3b"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """One AdamW ``make_train_step`` of the float32 smoke model from the
+    same parameters and batch on the card and the CPU: the loss within
+    1e-5 and every updated parameter within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+
+    cfg = configs.smoke_of(configs.get(arch))
+    cpu = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    card = Model(cfg)
+    card.load_state_dict({k: v.to(cuda) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    batch = TokenPipeline(cfg, 4, 32, seed=1, device="cpu").batch_at(0)
+    losses = []
+    for m in (cpu, card):
+        opt = adamw(lr=1e-3)
+        _, met = make_train_step(m, opt)(
+            opt.init(m.params()), {k: v.to(m.device) for k, v in
+                                   batch.items()}, 0)
+        losses.append(float(met["loss"]))
+    assert card.embed.table.device.type == "cuda"
+    assert abs(losses[1] - losses[0]) <= 1e-5
+    want = cpu.state_dict()
+    for k, p in card.state_dict().items():
+        torch.testing.assert_close(p.cpu(), want[k], rtol=0, atol=1e-4)

@@ -157,9 +157,6 @@ def test_full_width_abstract_params_match_reference(arch):
 
 
 def test_unported_pieces_raise():
-    pm = Model(pconfigs.smoke_of(pconfigs.get("llama3.2-3b")))
-    with pytest.raises(NotImplementedError, match="item 10b-2"):
-        pm.loss({})
     with pytest.raises(NotImplementedError, match="item 10b-3"):
         PL.set_sharding_hook(lambda x, axes: x)
     PL.set_sharding_hook(None)
