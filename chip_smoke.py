@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint,
-streaming, front-door, serving, distributed, launcher and LM serving paths
-(every LM family) on one CUDA card and check them.
+streaming, front-door, serving, distributed, launcher, LM serving (every LM
+family), LM training and production-mesh paths on one CUDA card and check
+them.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -235,7 +236,28 @@ Phases; any failure raises and exits non-zero:
    (loss within 1e-5, every parameter within 1e-4); and ``train()`` at
    smoke width for 3 steps then resumed to 6 from its checkpoint, equal to
    an uninterrupted 6-step run.  Training reaches no hand-written kernel.
-21. One JSON line of kernel numbers, then, as the last line,
+21. The production mesh (``lm-mesh``): a one-rank NCCL group and its
+   (data=1, model=1) grid, ``rules_for(cfg)`` and the activation hook.
+   llama3.2-3b at full width in bfloat16, first without the hook, then
+   with its parameters placed (``place_model``) from the same weights:
+   ``generate`` at batch 4, prompt 512, 16 greedy tokens (the same tokens;
+   logits within rtol 1e-2, atol 2e-2), 4 decode steps under
+   ``torch.profiler`` (kernels a step, busy share), and one AdamW step at
+   1 x 4096 tokens from the same zero state (the placed state through
+   ``place``): loss within a relative 1e-2, every parameter after it within
+   2e-2; prefill s, decode ms a step, step s and peak GB each way, and
+   their differences, the host cost of DTensor's dispatch.  Then
+   dbrx-132b at phase 19's cut (4 of 40 layers), at capacity factor 8
+   (nothing dropped) and at the preset's 1.25: layer 0's MoE FFN,
+   ``moe_ffn_ep`` (its two one-rank ``all_to_all``s on NCCL) against the
+   dense dispatch on the same input at the prefill's shape and a decode
+   step's, in float32 within 1e-4 (rtol and atol) and in bfloat16 beside
+   the dense dispatch's own spread from run to run; ``generate`` through
+   ``moe_ffn_ep`` (every MoE layer of every step takes it; nothing
+   dropped; finite logits), its logits on the dense dispatch's tokens
+   beside that spread, and both dispatches' ``moe_drop_frac`` at 1.25.
+   No hand-written kernel here either.
+22. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -295,6 +317,14 @@ TRAIN_MICRO = 4
 TRAIN_STEPS = 8
 TRAIN_EXTRA_STEPS = 2
 TRAIN_DD_SEQS = (256, 4096)
+# phase 21: the mesh on one card, a (data=1, model=1) grid on one NCCL rank
+MESH_BATCH = 4
+MESH_PROMPT = 512
+MESH_GEN = 16
+MESH_TRAIN_SEQ = 4096
+MESH_PROFILE_STEPS = 4
+MESH_MOE_ARCH = "dbrx-132b"
+MESH_NO_DROP_CF = 8.0
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -1802,6 +1832,335 @@ def lm_training(torch, dev, card: str, seed: int) -> float:
     return time.perf_counter() - start
 
 
+def _whole(x):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _serve_timed(torch, model, batch: dict, card: str, what: str,
+                profile: bool) -> dict:
+    """``generate`` at MESH_GEN tokens on ``batch``, timed; with
+    ``profile``, MESH_PROFILE_STEPS more decode steps under torch.profiler
+    (kernels a step).  Returns the tokens, the logits (whole), the metrics
+    and the numbers."""
+    from repro_torch.launch.serve import generate
+
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = synced(torch, lambda: generate(model, batch, gen=MESH_GEN))
+    res = {"tokens": out["tokens"], "logits": _whole(out["logits"]),
+           "metrics": {k: float(_whole(v)) for k, v in
+                       out["metrics"].items()},
+           "prefill_s": out["prefill_s"],
+           "decode_ms": out["decode_s"] / (MESH_GEN - 1) * 1e3,
+           "wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if profile:
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        cache = model.init_cache(b, s + MESH_PROFILE_STEPS + 1)
+        model.prefill({"tokens": tokens}, cache)
+        model.decode_step(tokens[:, -1:], cache, s)
+        prof = profiled(torch, lambda i: model.decode_step(
+            tokens[:, -1:], cache, s + 1 + i), MESH_PROFILE_STEPS)
+        res["kernels"] = prof["kernels"]
+        res["busy"] = prof["device_ms"] / prof["wall_ms"]
+        del cache
+    print(f"[mesh] {what}: prefill_s={res['prefill_s']:.4f} decode "
+          f"{res['decode_ms']:.3f} ms a step"
+          + (f", {res['kernels']:.0f} kernels a step (busy share "
+             f"{res['busy']:.3f})" if profile else "")
+          + f", peak {res['peak_gb']:.2f} GB"
+          + (f", moe_drop_frac {res['metrics']['moe_drop_frac']:.4f}"
+             if "moe_drop_frac" in res["metrics"] else "")
+          + f" on {card}")
+    if not bool(torch.isfinite(res["logits"]).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    return res
+
+
+def _same_serving(torch, plain: dict, meshed: dict, what: str) -> float:
+    """The mesh path against the plain one: the same greedy tokens and
+    logits within phase 18's bfloat16 limits (rtol 1e-2, atol 2e-2)."""
+    if not (plain["tokens"] == meshed["tokens"]).all():
+        raise AssertionError(f"{what}: greedy tokens differ with the mesh")
+    return max_err(torch, meshed["logits"].float(), plain["logits"].float(),
+                   rtol=1e-2, atol=2e-2, what=f"{what} logits, mesh vs plain")
+
+
+def _forced_logits(torch, model, batch: dict, tokens) -> object:
+    """Prefill ``batch``, then decode ``tokens`` (B, n) (numpy: another
+    path's greedy tokens), each step's last-position logits whole (B, n,
+    V): two paths compared on the same inputs at every step."""
+    t = batch["tokens"]
+    b, s = t.shape
+    n = tokens.shape[1]
+    ids = torch.as_tensor(tokens, device=t.device)
+    cache = model.init_cache(b, s + n)
+    logits, _ = model.prefill(batch, cache)
+    steps = [_whole(logits)[:, -1]]
+    for i in range(n - 1):
+        logits, _ = model.decode_step(ids[:, i:i + 1], cache, s + i)
+        steps.append(_whole(logits)[:, -1])
+    return torch.stack(steps, dim=1)
+
+
+def lm_mesh(torch, dev, card: str, seed: int) -> float:
+    """Phase 21: the production mesh's path on one card (see the module
+    docstring).  Returns the phase's seconds."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.dist.collectives import init_process_group_for, make_mesh
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import axes_tree
+    from repro_torch.optim import adamw
+
+    start = time.perf_counter()
+    own = init_process_group_for(dev)
+    try:
+        grid = make_mesh((1, 1), ("data", "model"))
+        cfg = configs.get(LM_ARCH)
+        rules = M.rules_for(cfg)
+        sfn = M.sharding_fn(grid, rules)
+        model = Model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                                dev)
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(0, cfg.vocab, (MESH_BATCH, MESH_PROMPT),
+                           dtype=np.int32)
+        batch = serve_batch(model, ids, rng)
+        tb = TokenPipeline(cfg, 1, MESH_TRAIN_SEQ, seed, device=dev
+                           ).batch_at(0)
+        w0 = {k: v.detach().to("cpu", copy=True)
+              for k, v in model.state_dict().items()}
+
+        # 21.1: llama3.2-3b without the hook: serve, then one AdamW step
+        plain = _serve_timed(torch, model, batch, card,
+                            f"{LM_ARCH} bfloat16 batch {MESH_BATCH} prompt "
+                            f"{MESH_PROMPT} gen {MESH_GEN}, no hook", True)
+        opt = adamw()
+        state = opt.init(model.params())
+        torch.cuda.reset_peak_memory_stats()
+        (state, met), p_step_s = synced(torch, lambda: make_train_step(
+            model, opt)(state, tb, 0))
+        p_loss, p_peak = float(met["loss"]), \
+            torch.cuda.max_memory_allocated() / 1e9
+        w1 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del state, met
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(w0[k])
+        del w0
+        torch.cuda.empty_cache()
+        print(f"[mesh] {LM_ARCH} one AdamW step at 1 x {MESH_TRAIN_SEQ} "
+              f"tokens, no hook: {p_step_s:.4f} s, loss {p_loss:.6f}, peak "
+              f"{p_peak:.2f} GB on {card}")
+
+        # 21.2: the same weights placed on the grid, the hook installed
+        place_s = synced(torch, lambda: M.place_model(model, sfn))[1]
+        M.install(grid, rules)
+        meshed = _serve_timed(torch, model, batch, card,
+                             f"{LM_ARCH} the same, through the mesh", True)
+        err = _same_serving(torch, plain, meshed, LM_ARCH)
+        opt = adamw()
+        state = M.place(opt.init(model.params()),
+                        opt.state_axes(axes_tree(model.param_specs())), sfn)
+        torch.cuda.reset_peak_memory_stats()
+        (state, met), m_step_s = synced(torch, lambda: make_train_step(
+            model, opt)(state, tb, 0))
+        m_loss = float(_whole(met["loss"]))
+        m_peak = torch.cuda.max_memory_allocated() / 1e9
+        rel = abs(m_loss - p_loss) / abs(p_loss)
+        if not rel <= 1e-2:
+            raise AssertionError(f"{LM_ARCH} mesh step loss {m_loss} vs "
+                                 f"{p_loss}: relative {rel:.3e} > 1e-2")
+        perr = max(max_err(torch, _whole(v).float(), w1[k].float(),
+                           rtol=0.0, atol=2e-2,
+                           what=f"{LM_ARCH} {k} after the step, mesh vs "
+                           f"plain")
+                   for k, v in model.state_dict().items())
+        print(f"[mesh] {LM_ARCH} through a (data=1, model=1) grid on one "
+              f"NCCL rank, parameters placed in {place_s:.4f} s: greedy "
+              f"tokens equal, logits max |diff| {err:.3e} (limits rtol "
+              f"1e-2, atol 2e-2); AdamW step {m_step_s:.4f} s (no hook "
+              f"{p_step_s:.4f} s), loss {m_loss:.6f} (relative diff "
+              f"{rel:.3e}, limit 1e-2), parameters after it within "
+              f"{perr:.3e} (limit 2e-2), peak {m_peak:.2f} GB (no hook "
+              f"{p_peak:.2f} GB); host cost of the mesh: prefill "
+              f"{meshed['prefill_s'] - plain['prefill_s']:+.4f} s, decode "
+              f"{meshed['decode_ms'] - plain['decode_ms']:+.3f} ms a step, "
+              f"step {m_step_s - p_step_s:+.4f} s on {card}")
+        M.uninstall()
+        del model, state, met, w1
+        torch.cuda.empty_cache()
+
+        # 21.3: dbrx-132b at phase 19's cut, through moe_ffn_ep on the grid
+        # against the dense dispatch: at a capacity factor where nothing
+        # drops, then at the preset's own
+        base = dataclasses.replace(configs.get(MESH_MOE_ARCH),
+                                   num_layers=FAMILY_LAYERS[MESH_MOE_ARCH])
+        no_drop = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=MESH_NO_DROP_CF))
+        rules = M.rules_for(base)
+        sfn = M.sharding_fn(grid, rules)
+        model = Model(no_drop).init(
+            torch.Generator(device=dev).manual_seed(seed), dev)
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(0, base.vocab, (MESH_BATCH, MESH_PROMPT),
+                           dtype=np.int32)
+        batch = serve_batch(model, ids, rng)
+        tag = (f"{MESH_MOE_ARCH} ({base.num_layers} of "
+               f"{configs.get(MESH_MOE_ARCH).num_layers} layers) bfloat16 "
+               f"batch {MESH_BATCH} prompt {MESH_PROMPT} gen {MESH_GEN}")
+
+        def runs(m, cfg2, what):
+            if cfg2 is not None:  # the same tensors under another config
+                m2 = Model(cfg2)
+                m2.load_state_dict(m.state_dict(), assign=True)
+                m = m2
+            return _serve_timed(torch, m, batch, card, what, False)
+
+        d_plain = runs(model, None, f"{tag}, capacity factor "
+                       f"{MESH_NO_DROP_CF}, dense dispatch")
+        want = _forced_logits(torch, model, batch, d_plain["tokens"])
+        noise = float((_forced_logits(torch, model, batch, d_plain["tokens"])
+                       .float() - want.float()).abs().max())
+        d_pre = runs(model, base, f"{tag}, capacity factor "
+                     f"{base.moe.capacity_factor}, dense dispatch")
+        # layer by layer: layer 0's MoE FFN on the same input at the
+        # prefill's and a decode step's shape, the dense dispatch here and
+        # the expert-parallel one under the grid below: the same routes.
+        # In float32 the two must agree; in bfloat16 their difference is
+        # set beside the dense dispatch's own from run to run
+        layer = []
+        for s in (MESH_PROMPT, 1):
+            g = torch.Generator(device=dev).manual_seed(seed + s)
+            x = torch.randn((MESH_BATCH, s, base.d_model), generator=g,
+                            device=dev)
+            p16 = {k: v[0] for k, v in
+                   model.params()["stack"]["b0"]["moe"].items()}
+            with torch.no_grad():
+                d32 = MOE._moe_ffn_dense_dispatch(
+                    {k: v.float() for k, v in p16.items()}, no_drop, x)[0]
+                d16 = [MOE._moe_ffn_dense_dispatch(
+                    p16, no_drop, x.to(base.cdtype))[0] for _ in range(2)]
+            layer.append({"x": x, "d32": d32, "d16": d16})
+        del p16
+        M.place_model(model, sfn)
+        M.install(grid, rules)
+        p16 = {k: v[0] for k, v in model.params()["stack"]["b0"]["moe"].items()}
+        p32 = M.place({k: _whole(v).float() for k, v in p16.items()},
+                      axes_tree(MOE.moe_specs(no_drop)), sfn)
+        for lay in layer:
+            x, s = lay["x"], lay["x"].shape[1]
+            with torch.no_grad():
+                (e32, m32), n32 = _count_ep(torch, lambda: MOE.moe_ffn(
+                    p32, no_drop, x))
+                (e16, m16), n16 = _count_ep(torch, lambda: MOE.moe_ffn(
+                    p16, no_drop, x.to(base.cdtype)))
+            if (n32, n16) != (1, 1) or float(_whole(m32["moe_drop_frac"])) \
+                    or float(_whole(m16["moe_drop_frac"])):
+                raise AssertionError(f"{MESH_MOE_ARCH} layer 0 at {s} "
+                                     f"positions: moe_ffn_ep not taken, or "
+                                     f"tokens dropped")
+            lay["err32"] = max_err(
+                torch, _whole(e32), lay["d32"], rtol=1e-4, atol=1e-4,
+                what=f"{MESH_MOE_ARCH} layer 0's MoE FFN at {s} positions "
+                f"in float32, moe_ffn_ep vs the dense dispatch")
+            d16a, d16b = (d.float() for d in lay["d16"])
+            diff = (_whole(e16).float() - d16a).abs()
+            lay["err16"] = float(diff.max())
+            lay["over16"] = float((diff > 2e-2 + 1e-2 * d16a.abs()).float()
+                                  .mean())
+            lay["spread16"] = float((d16b - d16a).abs().max())
+            lay["max16"] = float(d16a.abs().max())
+            print(f"[mesh] {MESH_MOE_ARCH} layer 0's MoE FFN at {s} "
+                  f"positions (batch {MESH_BATCH}, capacity factor "
+                  f"{MESH_NO_DROP_CF}): moe_ffn_ep vs the dense dispatch in "
+                  f"float32 max |diff| {lay['err32']:.3e} (limits rtol "
+                  f"1e-4, atol 1e-4); in bfloat16 max |diff| "
+                  f"{lay['err16']:.4e}, share over rtol 1e-2 / atol 2e-2 "
+                  f"{lay['over16']:.3e}, against the dense dispatch's own "
+                  f"spread from run to run {lay['spread16']:.4e} (max "
+                  f"|out| {lay['max16']:.3f}) on {card}")
+        del p16, p32, layer, e32, e16
+        torch.cuda.empty_cache()
+
+        e_mesh, n_ep = _count_ep(torch, lambda: runs(
+            model, None, f"{tag}, capacity factor {MESH_NO_DROP_CF}, "
+            f"moe_ffn_ep"))
+        got = _forced_logits(torch, model, batch, d_plain["tokens"])
+        e_pre, _ = _count_ep(torch, lambda: runs(
+            model, base, f"{tag}, capacity factor "
+            f"{base.moe.capacity_factor}, moe_ffn_ep"))
+        # the whole model: a router's near-tie flips an assignment when a
+        # bfloat16 sum is taken in another order, and the flip carries to
+        # the next layers, so the dense dispatch does not reproduce itself
+        # from run to run (its index_add_); the expert-parallel run is set
+        # beside that spread on the same tokens
+        diff = (got.float() - want.float()).abs()
+        over = float((diff > 2e-2 + 1e-2 * want.float().abs()).float().mean())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        same = float((e_mesh["tokens"] == d_plain["tokens"]).mean())
+        if d_plain["metrics"]["moe_drop_frac"] or \
+                e_mesh["metrics"]["moe_drop_frac"]:
+            raise AssertionError(f"{MESH_MOE_ARCH}: tokens dropped at "
+                                 f"capacity factor {MESH_NO_DROP_CF}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{MESH_MOE_ARCH}: non-finite logits")
+        expect = base.num_layers * MESH_GEN
+        if n_ep != expect:
+            raise AssertionError(f"{MESH_MOE_ARCH}: moe_ffn_ep ran {n_ep} "
+                                 f"times, not {expect} (every MoE layer a "
+                                 f"step)")
+        print(f"[mesh] {tag}, capacity factor {MESH_NO_DROP_CF} (nothing "
+              f"dropped): generate through moe_ffn_ep ({n_ep} calls, each "
+              f"with two one-rank all_to_alls on NCCL); the whole model on "
+              f"the dense dispatch's tokens: logits max |diff| "
+              f"{float(diff.max()):.4e} (share over the limits {over:.3e}, "
+              f"argmax agreeing at {agree:.4f}, max |logit| "
+              f"{float(want.float().abs().max()):.3f}) against the dense "
+              f"dispatch's own spread from run to run, max |diff| "
+              f"{noise:.4e}; greedy tokens of the two generate runs "
+              f"agreeing at {same:.4f}; at the preset's "
+              f"{base.moe.capacity_factor}: prefill moe_drop_frac dense "
+              f"{d_pre['metrics']['moe_drop_frac']:.4f}, expert-parallel "
+              f"{e_pre['metrics']['moe_drop_frac']:.4f} on {card}")
+        M.uninstall()
+        del model, batch
+        torch.cuda.empty_cache()
+    finally:
+        M.uninstall()
+        if own:
+            dist.destroy_process_group()
+    return time.perf_counter() - start
+
+
+def _count_ep(torch, fn):
+    """``fn()`` with the calls of ``moe_ffn_ep`` counted: (result,
+    calls)."""
+    from repro_torch.models import moe as MOE
+
+    calls = [0]
+    real = MOE.moe_ffn_ep
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    MOE.moe_ffn_ep = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        MOE.moe_ffn_ep = real
+
+
 def _leaves(tree: dict):
     for val in tree.values():
         if isinstance(val, dict):
@@ -2612,7 +2971,10 @@ def main() -> int:
     # --- 20. LM training: llama3.2-3b at full width ------------------------
     train_s = lm_training(torch, dev, card, args.seed)
 
-    # --- 21. results --------------------------------------------------------
+    # --- 21. the production mesh's path on one card ---------------------
+    mesh_s = lm_mesh(torch, dev, card, args.seed)
+
+    # --- 22. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",
@@ -2652,6 +3014,7 @@ def main() -> int:
     print(f"[families] the LM families phase ran {families_s:.1f} s on "
           f"{card}")
     print(f"[train] the LM training phase ran {train_s:.1f} s on {card}")
+    print(f"[mesh] the mesh phase ran {mesh_s:.1f} s on {card}")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -577,13 +577,13 @@ class Session:
 
     def mesh(self):
         """The dist executor's rank grid (cached): ``exec.mesh_shape``
-        verbatim, else every rank of the world on the 'data' axis.  It
-        lives on the process group that exists; else, under ``torchrun``,
-        one set up from the environment; else a one-rank group this session
-        starts (and ``close()`` ends): NCCL for a CUDA session, gloo for a
-        CPU one.  ``exec.multi_pod`` without ``mesh_shape`` asks for the
-        reference's production pod mesh, which belongs to the LM substrate
-        (ROADMAP.md queue 1, item 10), and raises."""
+        verbatim; else with ``exec.multi_pod`` the production pod mesh
+        (``launch.mesh.make_production_mesh``: it needs a world of 512
+        ranks); else every rank of the world on the 'data' axis.  It lives
+        on the process group that exists; else, under ``torchrun``, one set
+        up from the environment; else a one-rank group this session starts
+        (and ``close()`` ends, as it does when the grid cannot be made):
+        NCCL for a CUDA session, gloo for a CPU one."""
         if self._mesh is None:
             import torch.distributed as dist
 
@@ -591,18 +591,21 @@ class Session:
                                                       make_mesh)
 
             shape = self.cfg.exec.mesh_shape
-            if shape is None and self.cfg.exec.multi_pod:
-                from .config import ConfigError
-
-                raise ConfigError(
-                    "exec.multi_pod: the production pod mesh is part of the "
-                    "LM substrate, not ported (ROADMAP.md queue 1, item "
-                    "10); give exec.mesh_shape, e.g. {'pod': 2, 'data': 2, "
-                    "'model': 1}")
             self._own_group = init_process_group_for(self.device)
-            if shape is None:
-                shape = {"data": dist.get_world_size(), "model": 1}
-            self._mesh = make_mesh(tuple(shape.values()), tuple(shape))
+            try:
+                if shape is None and self.cfg.exec.multi_pod:
+                    from repro_torch.launch.mesh import make_production_mesh
+
+                    self._mesh = make_production_mesh(multi_pod=True)
+                    return self._mesh
+                if shape is None:
+                    shape = {"data": dist.get_world_size(), "model": 1}
+                self._mesh = make_mesh(tuple(shape.values()), tuple(shape))
+            except BaseException:
+                if self._own_group:
+                    dist.destroy_process_group()
+                    self._own_group = False
+                raise
         return self._mesh
 
     def monitor(self):

@@ -105,9 +105,15 @@ def unflatten(like, leaves):
 def _to_host(v) -> np.ndarray:
     """A host copy of a leaf: a later in-place update of the caller's
     tensor cannot reach a snapshot waiting for the save thread.  numpy has
-    no bfloat16, so a bfloat16 leaf is widened (exactly) to float32."""
+    no bfloat16, so a bfloat16 leaf is widened (exactly) to float32.  A
+    DTensor leaf is saved whole: gathered across its shards (every rank
+    of its mesh takes part)."""
+    from torch.distributed.tensor import DTensor
+
     if isinstance(v, torch.Tensor):
         v = v.detach()
+        if isinstance(v, DTensor):
+            v = v.full_tensor()
         if v.dtype == torch.bfloat16:
             v = v.float()
         return v.to("cpu", copy=True).numpy()

@@ -23,6 +23,11 @@ group's ranks, so the group rank IS that coordinate, and a reduce-scatter
 over ``(row, col)`` leaves block ``r * n_col + c`` on rank ``(r, c)``, the
 reference's layout.
 
+The grid made by :func:`make_mesh` also holds its
+``torch.distributed.device_mesh.DeviceMesh``: the same axis names in the
+same row-major layout on the same world, so DTensor placements
+(``repro_torch.launch.mesh``) and these reductions name one grid.
+
 One card holds one NCCL rank (NCCL refuses two ranks on one GPU): a grid
 of several ranks runs on the CPU with gloo, or on as many cards.
 """
@@ -55,9 +60,9 @@ def _as_axes(axes: AxisName) -> tuple[str, ...]:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """The rank grid: ``axis_names`` over ``sizes``, this process's
-    ``rank`` in it, the ``device`` its blocks live on, and the process
-    group of each axis set that :func:`make_mesh` made (none for a grid
-    built by hand for the host-side axis rules)."""
+    ``rank`` in it, the ``device`` its blocks live on, the process group
+    of each axis set and the ``DeviceMesh`` that :func:`make_mesh` made
+    (neither for a grid built by hand for the host-side axis rules)."""
 
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
@@ -65,6 +70,7 @@ class Mesh:
     device: torch.device = torch.device("cpu")
     groups: Mapping[tuple[str, ...], object] = dataclasses.field(
         default_factory=dict)
+    device_mesh: object = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -165,8 +171,13 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
             g = dist.new_group(ranks=[int(r) for r in ranks])
             if dist.get_rank() in ranks:
                 groups[key] = g
+    device = torch.device(device)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dmesh = DeviceMesh(device.type, torch.as_tensor(grid),
+                       mesh_dim_names=axes)
     return Mesh(axis_names=axes, sizes=shape, rank=dist.get_rank(),
-                device=torch.device(device), groups=groups)
+                device=device, groups=groups, device_mesh=dmesh)
 
 
 def init_process_group_for(device: torch.device) -> bool:
@@ -277,14 +288,68 @@ def _block(x: torch.Tensor, mesh: Mesh, spec: tuple) -> torch.Tensor:
     return x
 
 
+def placements(mesh: Mesh, spec: tuple) -> tuple:
+    """The DTensor placements of a spec on ``mesh``'s ``DeviceMesh``, one a
+    mesh axis: ``Shard(d)`` on every axis that dim ``d``'s entry names
+    (a name or a tuple of names, or None), ``Replicate()`` elsewhere.  A
+    dim split over several axes is split in mesh order, outermost first,
+    as DTensor splits it (JAX's pod-major order for ``("pod", "data")``);
+    another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * len(mesh.axis_names)
+    for dim, entry in enumerate(spec):
+        if entry is None or entry == ():
+            continue
+        axes = _as_axes(entry)
+        idx = [mesh.axis_names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} splits dim {dim} out of "
+                             f"the mesh's order {mesh.axis_names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"spec {spec} uses mesh axis "
+                                 f"{mesh.axis_names[i]!r} twice")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _local(x, mesh: Mesh, spec: tuple) -> torch.Tensor:
+    """This rank's block of the DTensor ``x`` under ``spec``: ``x``
+    redistributed to the spec's placements, its local shard.  The gradient
+    of the block is a partial sum over the axes the spec leaves out (each
+    rank's body used the whole of ``x`` there), as the transpose of a
+    ``shard_map`` input sums over them."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = placements(mesh, spec)
+    grad = tuple(Partial() if p == Replicate() else p for p in pl)
+    return x.redistribute(mesh.device_mesh, pl).to_local(grad_placements=grad)
+
+
 def shard_map(f: Callable, *, mesh: Mesh, in_specs, out_specs) -> Callable:
     """``f`` run on this rank's blocks: each input is cut along every dim
     its spec names axes for (``()`` or None: replicated), ``f`` runs on
     the blocks, and each output is all-gathered back along the dims its
     spec names.  Every rank must call the result, as every device runs a
-    ``shard_map`` body; outputs come back as the global arrays."""
+    ``shard_map`` body; outputs come back as the global arrays.
+
+    When an input is a DTensor (on ``mesh.device_mesh``), the blocks are
+    the DTensors' local shards, redistributed to the specs' placements
+    (nothing is gathered), gradients flow through the boundary as through
+    the reference's ``shard_map``, and each output comes back as the
+    DTensor its spec places, on the shards the body made.  A plain input
+    there is a global tensor every rank holds."""
 
     def mapped(*args):
+        if any(_is_dtensor(x) for x in args):
+            return _mapped_dtensor(f, mesh, in_specs, out_specs, args)
         blocks = [_block(x, mesh, spec) for x, spec in zip(args, in_specs)]
         outs = f(*blocks)
         single = not isinstance(outs, tuple)
@@ -299,6 +364,25 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs, out_specs) -> Callable:
         return full[0] if single else tuple(full)
 
     return mapped
+
+
+def _mapped_dtensor(f, mesh: Mesh, in_specs, out_specs, args):
+    from torch.distributed.tensor import DTensor
+
+    if mesh.device_mesh is None:
+        raise ValueError("shard_map over DTensors needs a mesh from "
+                         "make_mesh (it holds the DeviceMesh)")
+    blocks = [_local(x, mesh, spec) if _is_dtensor(x)
+              else _block(x, mesh, spec)
+              for x, spec in zip(args, in_specs)]
+    outs = f(*blocks)
+    single = not isinstance(outs, tuple)
+    outs = (outs,) if single else outs
+    specs = (out_specs,) if single else out_specs
+    placed = tuple(DTensor.from_local(y, mesh.device_mesh,
+                                      placements(mesh, spec))
+                   for y, spec in zip(outs, specs))
+    return placed[0] if single else placed
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,13 @@
                cpd_config / serve_cpd
                (decomposition serving through Session) and the
                ``python -m repro_torch.launch.serve`` entry point
+    mesh.py    make_production_mesh, the logical-axis rules (BASE_RULES,
+               rules_for, spec_for), sharding_fn / batch_sharding as DTensor
+               placements, place (distribute a tree) and the activation
+               hook (install)
 
-The production mesh (``mesh.py``) and the dry-run are not ported yet
-(ROADMAP §1 items 10b-3, 10c).
+The dry-run is not ported yet (ROADMAP §1 item 10c).
 """
+from .mesh import make_production_mesh, rules_for, sharding_fn
+
+__all__ = ["make_production_mesh", "rules_for", "sharding_fn"]

@@ -24,6 +24,7 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import configs
 from repro_torch.api.session import _sync
@@ -77,7 +78,10 @@ def generate(model: Model, batch: dict, *, gen: int) -> dict:
     _sync(dev)
     t_decode = time.perf_counter() - t0
 
-    return {"tokens": torch.stack(toks, dim=1).cpu().numpy(),
+    tokens = torch.stack(toks, dim=1)
+    if isinstance(tokens, DTensor):  # a placed model's: gathered
+        tokens = tokens.full_tensor()
+    return {"tokens": tokens.cpu().numpy(),
             "logits": torch.stack(steps, dim=1), "metrics": metrics,
             "prefill_s": t_prefill, "decode_s": t_decode,
             "decode_tok_s": b * (gen - 1) / max(t_decode, 1e-9)}

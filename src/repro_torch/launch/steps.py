@@ -35,9 +35,18 @@ def _split_micro(batch: dict, m: int) -> dict:
 
 def _take_grad(p: torch.Tensor) -> torch.Tensor:
     """``p``'s gradient, detached from ``p`` (zeros where the loss does not
-    reach ``p``, as JAX gives)."""
+    reach ``p``, as JAX gives).  A placed parameter's gradient comes out of
+    the backward pass as the ops left it (a partial sum over the axes that
+    split the batch): it is placed as ``p`` is, which sums it there (the
+    data-parallel all-reduce)."""
+    from torch.distributed.tensor import DTensor
+
     g, p.grad = p.grad, None
-    return torch.zeros_like(p) if g is None else g
+    if g is None:
+        return torch.zeros_like(p)
+    if isinstance(p, DTensor) and g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model: Model, optimizer: Optimizer, *,
@@ -63,8 +72,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         model.zero_grad(set_to_none=True)
         if micro_batches > 1:
             micro = _split_micro(batch, micro_batches)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             per = []
             for i in range(micro_batches):
                 metrics, g = grads_of({k: v[i] for k, v in micro.items()})

@@ -14,6 +14,9 @@ a call returns holds the same tensors it was given.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -26,23 +29,21 @@ NEG_INF = -2.0e38
 
 
 # ---------------------------------------------------------------------------
-# activation sharding hook
+# activation sharding hook (MaxText-style logical constraints)
 # ---------------------------------------------------------------------------
-# The reference's launch layer installs a callback constraining activations
-# to logical mesh axes, and the mesh beside it (expert-parallel MoE reads
-# it).  This package has no production mesh yet (ROADMAP §1 item 10b-3), so
-# ``shard_act`` is the identity and no hook can be set: both stay None.
+# The launch layer (``repro_torch.launch.mesh.install``) installs a callback
+# mapping (tensor, logical_axes) -> the tensor as a DTensor with its axes'
+# placements, and the mesh beside it (expert-parallel MoE reads it).
+# Without it (unit tests, one device) ``shard_act`` is the identity.
 
 _SHARDING_HOOK = None
-_MESH = None
+_MESH = None  # set together with the hook; enables the expert-parallel MoE
 
 
 def set_sharding_hook(fn, mesh=None) -> None:
-    if fn is not None or mesh is not None:
-        raise NotImplementedError(
-            "activation sharding needs the production mesh "
-            "(launch/mesh.py), which is not ported yet (ROADMAP §1 item "
-            "10b-3)")
+    global _SHARDING_HOOK, _MESH
+    _SHARDING_HOOK = fn
+    _MESH = mesh
 
 
 def get_mesh():
@@ -50,12 +51,96 @@ def get_mesh():
 
 
 def sharded() -> bool:
-    """Whether a sharding hook or a mesh is installed (never, here)."""
+    """Whether a sharding hook or a mesh is installed."""
     return _SHARDING_HOOK is not None or _MESH is not None
 
 
 def shard_act(x: torch.Tensor, axes: tuple) -> torch.Tensor:
-    return x
+    if _SHARDING_HOOK is None:
+        return x
+    return _SHARDING_HOOK(x, axes)
+
+
+def is_placed(x) -> bool:
+    """Whether ``x`` is a DTensor under an installed hook."""
+    if _SHARDING_HOOK is None:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a plain tensor every rank holds whole (a mask, RoPE's angles,
+    a carry's start), as a replicated DTensor on ``ref``'s mesh when
+    ``ref`` is a DTensor, so that autograd, which saves it, meets no plain
+    tensor in the backward pass; else ``t``."""
+    if _SHARDING_HOOK is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    dm = ref.device_mesh
+    return DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                              run_check=False)
+
+
+@contextlib.contextmanager
+def _unhooked():
+    """No hook and no mesh inside: a body that runs on one rank's blocks
+    (plain tensors) constrains nothing."""
+    global _SHARDING_HOOK, _MESH
+    saved = _SHARDING_HOOK, _MESH
+    _SHARDING_HOOK = _MESH = None
+    try:
+        yield
+    finally:
+        _SHARDING_HOOK, _MESH = saved
+
+
+def _attend(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            *masks):
+    """``core(q, k, v, *masks)``, the attention core (``_sdpa`` or
+    ``_flash_attention``), on each rank's block of batch rows and heads
+    when ``q`` is a DTensor: a ``shard_map`` over the batch and head axes,
+    the same computation as the plain path's on a block, as tensor-parallel
+    attention runs a head shard.  (DTensor's own einsum would flatten the
+    batch dim and the head dim, both split, into one, which some torch
+    releases refuse.)  The heads stay split only where the KV heads split
+    with them, so a q head's KV head is on its rank; else they are
+    replicated.  The masks are plain or replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return core(q, k, v, *masks)
+    dm = q.device_mesh
+    heads = [i for i, p in enumerate(q.placements) if p == Shard(2)]
+    if heads and k.shape[2] % math.prod(dm.size(i) for i in heads):
+        heads = []
+    pl = [Shard(0) if p == Shard(0) else Shard(2) if i in heads
+          else Replicate() for i, p in enumerate(q.placements)]
+
+    def block(t):
+        return replicated_like(t, q).redistribute(dm, pl).to_local()
+
+    ql, kl, vl = block(q), block(k), block(v)
+    ml = [m.full_tensor() if isinstance(m, DTensor) else m for m in masks]
+    with _unhooked():
+        out = core(ql, kl, vl, *ml)
+    return DTensor.from_local(out, dm, pl, run_check=False)
+
+
+def mixed():
+    """The context an installed hook's computation runs in: a plain tensor
+    that meets a DTensor there (a mask, positions, RoPE's angles, a
+    constant) is one every rank holds whole, so it is taken as replicated
+    (``implicit_replication``).  A no-op without a hook."""
+    if not sharded():
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +222,8 @@ def apply_rope(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                                 cfg.mrope_sections)
     else:
         sin, cos = rope_sincos(positions, cfg.head_dim, cfg.rope_theta)
-    sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    sin = replicated_like(sin[:, :, None, :], q)
+    cos = replicated_like(cos[:, :, None, :], q)
     return (_rope_rotate(q.float(), sin, cos).to(q.dtype),
             _rope_rotate(k.float(), sin, cos).to(k.dtype))
 
@@ -165,7 +251,8 @@ def _sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     qg = q.reshape(b, s, kvh, g, hd)
     scale = hd ** -0.5
     scores = torch.einsum("bsngd,btnd->bngst", qg, k) * scale
-    scores = torch.where(mask, scores.float(), NEG_INF)
+    scores = torch.where(replicated_like(mask, scores), scores.float(),
+                         NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bngst,btnd->bsngd", probs, v)
     return out.reshape(b, s, h, hd)
@@ -208,7 +295,10 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     kb = min(kb, t)
     nq, nk = s // qb, t // kb
     scale = hd ** -0.5
-    qr = q.reshape(b, nq, qb, h, hd)
+    # enough q blocks that they can shard over the model axis when the head
+    # count cannot (context-parallel attention: rules override flash_q)
+    qr = shard_act(q.reshape(b, nq, qb, h, hd),
+                   ("act_batch", "flash_q", None, "heads", None))
     qpos = (torch.arange(nq, device=q.device)[:, None] * qb
             + torch.arange(qb, device=q.device)[None, :])  # (nq, qb)
 
@@ -217,6 +307,7 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     l = torch.zeros((b, nq, h, qb), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, nq, h, qb, hd), dtype=torch.float32,
                       device=q.device)
+    m, l, acc = (replicated_like(c, qr) for c in (m, l, acc))
     for ki in range(nk):
         lo, hi = 0, nq
         if block_skip and mask_kind in ("causal", "local"):
@@ -225,8 +316,10 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             if not live:
                 continue
             lo, hi = live[0], live[-1] + 1
-        kblk = torch.repeat_interleave(k[:, ki * kb:(ki + 1) * kb], g, dim=2)
-        vblk = torch.repeat_interleave(v[:, ki * kb:(ki + 1) * kb], g, dim=2)
+        kblk = shard_act(_repeat_kv(k[:, ki * kb:(ki + 1) * kb], g),
+                         ("act_batch", None, "heads", None))
+        vblk = shard_act(_repeat_kv(v[:, ki * kb:(ki + 1) * kb], g),
+                         ("act_batch", None, "heads", None))
         sc = torch.einsum("bnqhd,bkhd->bnhqk", qr[:, lo:hi],
                           kblk).float() * scale
         if mask_kind != "bidir":
@@ -235,7 +328,8 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             msk = kpos[None, None, :] <= qp
             if mask_kind == "local":
                 msk = msk & (kpos[None, None, :] > qp - cfg.window)
-            sc = torch.where(msk[None, :, None], sc, NEG_INF)
+            sc = torch.where(replicated_like(msk[None, :, None], sc), sc,
+                             NEG_INF)
         m_old = m[:, lo:hi]
         m_new = torch.maximum(m_old, sc.amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])
@@ -250,8 +344,17 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         acc = _splice(acc, acc_new, lo, hi)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     # (B, nq, H, qb, hd) -> (B, nq, qb, H, hd), cast inside the block
-    out = out.permute(0, 1, 3, 2, 4).to(q.dtype)
+    out = shard_act(out.permute(0, 1, 3, 2, 4).to(q.dtype),
+                    ("act_batch", "flash_q", None, "heads", None))
     return out.reshape(b, s, h, hd)
+
+
+def _repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, T, KV, hd) -> (B, T, KV * g, hd), KV head ``n`` repeated ``g``
+    times in place (``repeat_interleave`` on dim 2), as an expand and a
+    reshape, which keep a DTensor sharded over its KV heads."""
+    b, t, kvh, hd = x.shape
+    return x[:, :, :, None].expand(b, t, kvh, g, hd).reshape(b, t, kvh * g, hd)
 
 
 def _splice(carry: torch.Tensor, new: torch.Tensor, lo: int,
@@ -294,7 +397,8 @@ def attention(
         s == 1.
     """
     b, s, d = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = shard_act(torch.einsum("bsd,dhk->bshk", x, p["wq"]),
+                  ("act_batch", None, "heads", None))
     if memory is not None:
         # cross-attention: K/V from encoder memory (cached after prefill)
         if cache is not None and "ck" in cache and s == 1:
@@ -312,11 +416,13 @@ def attention(
                 new_cache = {"ck": k, "cv": v}
         mask = torch.ones((1, 1, 1, s, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        out = _sdpa(cfg, q, k, v, mask)
+        out = _attend(functools.partial(_sdpa, cfg), q, k, v, mask)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
 
-    k = torch.einsum("bsd,dnk->bsnk", x, p["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", x, p["wv"])
+    k = shard_act(torch.einsum("bsd,dnk->bsnk", x, p["wk"]),
+                  ("act_batch", None, "kv_heads", None))
+    v = shard_act(torch.einsum("bsd,dnk->bsnk", x, p["wv"]),
+                  ("act_batch", None, "kv_heads", None))
 
     if cache is not None and s == 1 and "k" in cache:
         # ---- decode: single new token against the cache ----
@@ -337,7 +443,8 @@ def attention(
         valid = spos <= pos
         if mask_kind == "local":
             valid = valid & (spos > pos - cfg.window)
-        out = _sdpa(cfg, q, ck, cv, valid[None, None, None, None, :])
+        out = _attend(functools.partial(_sdpa, cfg), q, ck, cv,
+                      valid[None, None, None, None, :])
         new_cache = {"k": ck, "v": cv, "slot_pos": spos}
         return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
 
@@ -346,12 +453,13 @@ def attention(
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k = apply_rope(cfg, q, k, positions)
     if s >= FLASH_MIN_SEQ and s % FLASH_QB == 0:
-        out = _flash_attention(cfg, q, k, v, mask_kind,
-                               block_skip=cfg.flash_block_skip)
+        out = _attend(functools.partial(
+            _flash_attention, cfg, mask_kind=mask_kind,
+            block_skip=cfg.flash_block_skip), q, k, v)
     else:
         mask = _train_mask(mask_kind, s, cfg.window,
                            x.device)[None, None, None, :, :]
-        out = _sdpa(cfg, q, k, v, mask)
+        out = _attend(functools.partial(_sdpa, cfg), q, k, v, mask)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
     new_cache = None
@@ -407,6 +515,7 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
     else:
         h = F.gelu(x @ p["wu"], approximate="tanh")
+    h = shard_act(h, ("act_batch", None, "mlp"))
     return h @ p["wd"]
 
 
@@ -422,7 +531,13 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 
 def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["table"][tokens.long()].to(cfg.cdtype)
+    # under a mesh the tokens are placed on the batch axes, as the
+    # reference's batch is, and an FSDP table (its embed dim on the data
+    # axes) is gathered; each rank then looks its own rows up
+    tokens = shard_act(tokens.long(), ("act_batch", None))
+    table = shard_act(p["table"], ("vocab", None))
+    x = _lookup(table, tokens) if is_placed(table) else table[tokens]
+    x = shard_act(x.to(cfg.cdtype), ("act_batch", None, None))
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -431,5 +546,107 @@ def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, p["table"].to(x.dtype))
-    return torch.einsum("bsd,dv->bsv", x, p["head"].to(x.dtype))
+        out = torch.einsum("bsd,vd->bsv", x, p["table"].to(x.dtype))
+    else:
+        out = torch.einsum("bsd,dv->bsv", x, p["head"].to(x.dtype))
+    return shard_act(out, ("act_batch", None, "vocab"))
+
+
+# ---------------------------------------------------------------------------
+# vocab-parallel lookups (a row's owner answers, the others add zeros)
+# ---------------------------------------------------------------------------
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over process groups of values each rank holds a part of,
+    which every rank then uses whole: all-reduce forward, identity
+    backward (each rank's part gets the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+
+        x = x.clone()
+        for g in groups:
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _split_offset(dm, dims: list, block: int) -> int:
+    """This rank's first index of a dim split over mesh ``dims`` (mesh
+    order, outermost first) in blocks of ``block``."""
+    coord = dm.get_coordinate()
+    idx = 0
+    for i in dims:
+        idx = idx * dm.size(i) + coord[i]
+    return idx * block
+
+
+def _vocab_take(table, ids, vocab_dim: int, take):
+    """``take(local block, local ids in it)`` where each rank holds a block
+    of ``table``'s ``vocab_dim`` and the ids index the whole of it: an id
+    outside the block reads a clamped row that is zeroed, and the blocks'
+    answers are summed over the split axes.  Returns the local answer and
+    the mesh axes the ids' batch is split over."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dm = table.device_mesh
+    vdims = [i for i, p in enumerate(table.placements)
+             if p == Shard(vocab_dim)]
+    batch = [i for i, p in enumerate(ids.placements) if p == Shard(0)]
+    # where the batch is split and the table is whole, each rank's
+    # gradient is a part of the table's
+    grad = [Partial() if i in batch and p == Replicate() else p
+            for i, p in enumerate(table.placements)]
+    local = table.to_local(grad_placements=grad)
+    n = local.shape[vocab_dim]
+    rel = ids.to_local() - _split_offset(dm, vdims, n)
+    inside = (rel >= 0) & (rel < n)
+    out = take(local, rel.clamp(0, n - 1), inside)
+    if vdims:
+        out = _SumOverRanks.apply(out, [dm.get_group(i) for i in vdims])
+    return out, batch
+
+
+def _placed_rows(out, dm, batch: list):
+    """``out``, whole on every rank but split over the ``batch`` axes, as
+    a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    return DTensor.from_local(out, dm, [Shard(0) if i in batch
+                                        else Replicate()
+                                        for i in range(dm.ndim)],
+                              run_check=False)
+
+
+def _lookup(table, ids):
+    """``table[ids]`` for a placed table (rows split over the vocab axes,
+    replicated otherwise) and ids placed on the batch axes: each rank looks
+    its own rows up, so the table is never gathered (Megatron's
+    vocab-parallel embedding)."""
+    def take(w, rel, inside):
+        return F.embedding(rel, w) * inside[..., None].to(w.dtype)
+
+    out, batch = _vocab_take(table, ids, 0, take)
+    return _placed_rows(out, table.device_mesh, batch)
+
+
+def take_along_vocab(logits, labels):
+    """``logits[..., labels]`` (B, S) of placed (B, S, V) logits and placed
+    labels, each rank reading its own vocab block (the labels placed on
+    the logits' batch axes first)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dm = logits.device_mesh
+    labels = labels.redistribute(dm, [
+        Shard(0) if p == Shard(0) else Replicate()
+        for p in logits.placements])
+
+    def take(lf, rel, inside):
+        return torch.gather(lf, -1, rel[..., None])[..., 0] * inside
+
+    out, batch = _vocab_take(logits, labels, 2, take)
+    return _placed_rows(out, dm, batch)

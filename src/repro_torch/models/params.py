@@ -91,10 +91,26 @@ def _unflatten(tree, flat: dict, prefix: str = ""):
     return flat[prefix[:-1]]
 
 
-def abstract_params(spec_tree, dtype: torch.dtype) -> Any:
-    """Tensors on the ``meta`` device: shapes and dtypes, no allocation."""
-    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
-                                          device="meta"), spec_tree)
+def abstract_params(spec_tree, dtype: torch.dtype,
+                    sharding_fn: Callable | None = None) -> Any:
+    """Tensors on the ``meta`` device: shapes and dtypes, no allocation.
+    ``sharding_fn`` maps a leaf's logical axes and shape to a sharding
+    (``repro_torch.launch.mesh.sharding_fn``): each leaf is then a meta
+    DTensor with its placements (its local shard's shape)."""
+    def f(s: ParamSpec):
+        t = torch.empty(s.shape, dtype=dtype, device="meta")
+        if sharding_fn is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+
+        sh = sharding_fn(s.axes, s.shape)
+        return distribute_tensor(t, sh.device_mesh, sh.placements)
+    return tree_map(f, spec_tree)
+
+
+def axes_tree(spec_tree) -> Any:
+    """The logical axes tuple of every leaf."""
+    return tree_map(lambda s: s.axes, spec_tree)
 
 
 def param_bytes(spec_tree, dtype: torch.dtype) -> int:

@@ -236,9 +236,11 @@ class Model(nn.Module):
         self.load_state_dict(flat, assign=True)
         return self
 
-    def abstract(self) -> dict:
-        """The parameter tree on the ``meta`` device (no allocation)."""
-        return abstract_params(self.param_specs(), self.cfg.pdtype)
+    def abstract(self, sharding_fn=None) -> dict:
+        """The parameter tree on the ``meta`` device (no allocation); with
+        ``sharding_fn``, meta DTensors with their placements."""
+        return abstract_params(self.param_specs(), self.cfg.pdtype,
+                               sharding_fn)
 
     def params(self) -> dict:
         """The parameters as the reference's nested tree."""
@@ -273,11 +275,17 @@ class Model(nn.Module):
                    device: DeviceLike = None) -> dict:
         """A zeroed cache on ``device`` (the parameters' device when None),
         in the reference's dtypes: recurrent ``state`` and ``h`` float32,
-        ``slot_pos`` int32 at the empty-slot sentinel, the rest ``cdtype``."""
+        ``slot_pos`` int32 at the empty-slot sentinel, the rest ``cdtype``.
+        With a sharding hook installed, each leaf is placed by its logical
+        axes (``cache_batch`` on the data axes, ``kv_heads`` on the model
+        axis), as the reference places its cache."""
         dev = self.device if device is None else torch.device(device)
-        return _zero_cache(self.cache_specs(batch, cache_len,
-                                            src_len=src_len),
-                           self.cfg.cdtype, dev)
+        specs = self.cache_specs(batch, cache_len, src_len=src_len)
+        cache = _zero_cache(specs, self.cfg.cdtype, dev)
+        if L.sharded():
+            cache = _map_with_specs(lambda t, s: L.shard_act(t, s.axes),
+                                    cache, specs)
+        return cache
 
     # -- forward ------------------------------------------------------------
     def _inputs_to_x(self, params: dict, batch: dict) -> torch.Tensor:
@@ -308,6 +316,10 @@ class Model(nn.Module):
         position's logits, and update ``cache`` in place.  The metrics (the
         MoE blocks') are the reference's: the stack's averaged over its
         reps, then every block entry's averaged."""
+        with L.mixed():
+            return self._forward(batch, mode=mode, cache=cache, pos=pos)
+
+    def _forward(self, batch: dict, *, mode: str, cache, pos):
         cfg = self.cfg
         params = self.params()
         x = self._inputs_to_x(params, batch)
@@ -388,10 +400,15 @@ class Model(nn.Module):
         ``cfg.chunked_loss`` the (B, S, V) logits are never whole: the
         unembedding and the cross-entropy run one sequence chunk at a
         time."""
+        with L.mixed():  # around the forward too: one context, not nested
+            return self._loss(batch)
+
+    def _loss(self, batch: dict):
         cfg = self.cfg
         labels = batch["labels"]
         if cfg.chunked_loss:
-            x, _, metrics = self.forward(batch, mode="hidden")
+            x, _, metrics = self._forward(batch, mode="hidden", cache=None,
+                                          pos=None)
             c = cfg.chunked_loss
             s = x.shape[1]
             if s % c:
@@ -404,7 +421,8 @@ class Model(nn.Module):
                                 labels[:, i:i + c])
                 tot, cnt = tot + t, cnt + n
         else:
-            logits, _, metrics = self.forward(batch, mode="train")
+            logits, _, metrics = self._forward(batch, mode="train",
+                                               cache=None, pos=None)
             tot, cnt = _ce_sums(logits, labels)
         ce = tot / torch.clamp(cnt, min=1.0)
         return ce, dict(metrics, loss=ce)
@@ -444,8 +462,11 @@ def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
     count).  A masked label gathers class 0; its term is multiplied by 0."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    labels = labels.long()
-    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    labels = L.shard_act(labels.long(), ("act_batch", None))
+    if L.is_placed(lf):  # each rank reads its own vocab block
+        gold = L.take_along_vocab(lf, labels.clamp(min=0))
+    else:
+        gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
     valid = (labels >= 0).float()
     return ((lse - gold) * valid).sum(), valid.sum()
 
@@ -499,6 +520,12 @@ def _zero_cache(specs: dict, cdtype: torch.dtype, dev) -> dict:
             dt = cdtype if name in _CDTYPE_LEAVES else torch.float32
             out[name] = torch.zeros(spec.shape, dtype=dt, device=dev)
     return out
+
+
+def _map_with_specs(fn, tree: dict, specs: dict) -> dict:
+    """``fn(leaf, its spec)`` over a tree and its spec tree."""
+    return {k: (_map_with_specs(fn, v, specs[k]) if isinstance(v, dict)
+                else fn(v, specs[k])) for k, v in tree.items()}
 
 
 def _flat(tree: dict, prefix: str = ""):

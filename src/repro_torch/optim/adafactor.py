@@ -49,7 +49,7 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                 denom = (vr[..., None] * vc[..., None, :]
                          / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None],
                                        min=eps))
-                u = gf * torch.rsqrt(denom.add_(eps))
+                u = gf * torch.rsqrt(denom + eps)
                 del denom
                 st["vr"].copy_(vr)
                 st["vc"].copy_(vc)

@@ -305,18 +305,85 @@ def test_capacity_matches_reference():
 
 
 def test_moe_ffn_raises_under_a_sharding_hook(monkeypatch):
-    """Expert parallelism needs the production mesh: with a hook (or a
-    mesh) in place, moe_ffn names the item that holds it."""
-    _, pcfg = _moe_cfgs("swiglu", 1.25, 0)
-    p = {k: torch.as_tensor(v) for k, v in draw(
-        PMOE.moe_specs(pcfg), np.random.default_rng(10)).items()}
-    x = torch.zeros((1, 4, 64))
+    """It no longer raises: under a one-rank (data=1, model=1) grid on the
+    CPU, with the parameters and the input placed and the hook installed,
+    ``moe_ffn`` takes the expert-parallel dispatch (its one-rank
+    all_to_alls on gloo) and equals the dense dispatch (capacity factor
+    4.0: nothing dropped; 1e-5), as the reference's expert-parallel
+    dispatch is held to its dense one."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.collectives import make_mesh
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.params import axes_tree
+
+    _, pcfg = _moe_cfgs("swiglu", 4.0, 1)
+    specs = PMOE.moe_specs(pcfg)
+    rng = np.random.default_rng(10)
+    p = {k: torch.as_tensor(v) for k, v in draw(specs, rng).items()}
+    x = torch.as_tensor(rand(rng, 2, 8, 64))
+    want, wmet = PMOE.moe_ffn(p, pcfg, x)
     assert PL.get_mesh() is None and not PL.sharded()
-    PMOE.moe_ffn(p, pcfg, x)
-    monkeypatch.setattr(PL, "_SHARDING_HOOK", lambda a, axes: a)
-    with pytest.raises(NotImplementedError, match="item 10b-3"):
-        PMOE.moe_ffn(p, pcfg, x)
-    monkeypatch.setattr(PL, "_SHARDING_HOOK", None)
-    monkeypatch.setattr(PL, "_MESH", object())
-    with pytest.raises(NotImplementedError, match="item 10b-3"):
-        PMOE.moe_ffn(p, pcfg, x)
+    calls = []
+    real = PMOE.moe_ffn_ep
+    monkeypatch.setattr(PMOE, "moe_ffn_ep",
+                        lambda *a: calls.append(1) or real(*a))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = M.rules_for(pcfg)
+        sfn = M.sharding_fn(mesh, rules)
+        pp = M.place(p, axes_tree(specs), sfn)
+        M.install(mesh, rules)
+        assert PL.get_mesh() is mesh and PL.sharded()
+        got, met = PMOE.moe_ffn(pp, pcfg, PL.shard_act(x, ("act_batch",
+                                                          None, None)))
+        got = got.full_tensor()
+    finally:
+        M.uninstall()
+        dist.destroy_process_group()
+    assert calls == [1] and set(met) == {"moe_drop_frac"}
+    assert float(wmet["moe_drop_frac"]) == 0.0
+    assert float(met["moe_drop_frac"].full_tensor()) == 0.0
+    close(got, want)
+
+
+@pytest.mark.parametrize("cap", [4, 32])
+def test_dispatch_to_buffer_matches_reference_and_places_every_entry(cap):
+    """The expert-parallel dispatch's packing: with every entry valid, the
+    buffer and the slots equal the reference's (``cap`` 4: some dropped);
+    with invalid entries (bucket 0, as an empty send slot arrives), every
+    valid entry lands in its bucket in its order and the invalid ones
+    nowhere.  (The reference searches its buckets' starts among the
+    invalid entries' unsorted ids, and can then misplace valid ones:
+    ROADMAP §3.)"""
+    rng = np.random.default_rng(12)
+    n, nb = 48, 4
+    tokens = rand(rng, n, 3)
+    expert = rng.integers(0, nb, n).astype(np.int32)
+    ones = np.ones(n, bool)
+    jbuf, jslot = JMOE._dispatch_to_buffer(
+        jnp.asarray(tokens), jnp.asarray(expert), jnp.ones(n),
+        jnp.asarray(ones), nb, cap)
+    pbuf, pslot = PMOE._dispatch_to_buffer(
+        torch.as_tensor(tokens), torch.as_tensor(expert).long(),
+        torch.as_tensor(ones), nb, cap)
+    close(pbuf, jbuf, rtol=0, atol=0)
+    np.testing.assert_array_equal(pslot.numpy(), np.asarray(jslot))
+
+    valid = rng.random(n) < 0.4
+    expert = np.where(valid, expert, 0)
+    pbuf, pslot = PMOE._dispatch_to_buffer(
+        torch.as_tensor(tokens), torch.as_tensor(expert).long(),
+        torch.as_tensor(valid), nb, cap)
+    want = np.zeros((nb, cap, 3), np.float32)
+    for b in range(nb):
+        rows = np.flatnonzero(valid & (expert == b))
+        for r, i in enumerate(rows):
+            want_slot = b * cap + r if r < cap else nb * cap
+            assert int(pslot[i]) == want_slot, (b, r)
+            if r < cap:
+                want[b, r] = tokens[i]
+    assert (pslot.numpy()[~valid] == nb * cap).all()
+    close(pbuf, want, rtol=0, atol=0)

@@ -157,11 +157,40 @@ def test_full_width_abstract_params_match_reference(arch):
 
 
 def test_unported_pieces_raise():
-    with pytest.raises(NotImplementedError, match="item 10b-3"):
-        PL.set_sharding_hook(lambda x, axes: x)
-    PL.set_sharding_hook(None)
+    """Nothing raises now: a hook is installed, is called with the
+    reference's logical axes at the reference's call sites, and is
+    removed; without one ``shard_act`` is the identity."""
     x = torch.ones(2)
     assert PL.shard_act(x, ("act_batch",)) is x
+    seen = []
+
+    def hook(t, axes):
+        seen.append(axes)
+        return t
+
+    cfg = pconfigs.smoke_of(pconfigs.get("llama3.2-3b"))
+    model = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    PL.set_sharding_hook(hook, "a mesh")
+    try:
+        assert PL.get_mesh() == "a mesh" and PL.sharded()
+        assert PL.shard_act(x, ("act_batch",)) is x
+        with torch.no_grad():
+            model({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    finally:
+        PL.set_sharding_hook(None)
+    assert PL.get_mesh() is None and not PL.sharded()
+    assert PL.shard_act(x, ("act_batch",)) is x
+    # the reference's constraints, in its order: embed, then a layer's
+    # q / k / v and MLP hidden, then the unembed
+    for axes in [("act_batch", None, None),
+                 ("act_batch", None, "heads", None),
+                 ("act_batch", None, "kv_heads", None),
+                 ("act_batch", None, "mlp"),
+                 ("act_batch", None, "vocab")]:
+        assert axes in seen, axes
+    assert seen.index(("act_batch", None, None)) < seen.index(
+        ("act_batch", None, "heads", None)) < seen.index(
+        ("act_batch", None, "mlp")) < seen.index(("act_batch", None, "vocab"))
 
 
 # ---------------------------------------------------------------------------
