@@ -2,7 +2,7 @@
 """Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint,
 streaming, front-door, serving, distributed, launcher, LM serving (every LM
 family), LM training and production-mesh paths on one CUDA card and check
-them.
+them, then the dry-run's traced bounds against the card's times.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -257,7 +257,23 @@ Phases; any failure raises and exits non-zero:
    dropped; finite logits), its logits on the dense dispatch's tokens
    beside that spread, and both dispatches' ``moe_drop_frac`` at 1.25.
    No hand-written kernel here either.
-22. One JSON line of kernel numbers, then, as the last line,
+22. The dry-run (``repro_torch.launch.dryrun``), on the card's host, each
+   process on a fake process group of its own: ``cpals-yelp``'s
+   distributed iteration on the single-pod (16 x 16 = 256 ranks) and
+   multi-pod (2 x 16 x 16 = 512) grids, llama3.2-3b ``train_4k``,
+   dbrx-132b ``decode_32k`` (a step's one position takes the dense MoE
+   dispatch) and ``prefill_32k`` (``moe_ffn_ep``'s two all-to-alls a
+   layer) on the single-pod grid, all at once, within 150 s: each cell's
+   dominant term,
+   bound, ``peak_estimate_gib`` and collective mix, traced on ``meta`` and
+   turned into time by the H100's constants (nothing of it measured on
+   the card).  Then two bounds traced the same way on a one-rank grid
+   (world 1), each held below the card's own time: llama3.2-3b's AdamW
+   step at 1 x 4096 tokens against phase 21's step without the hook, and
+   ``cpals-yelp``'s dist iteration (phase 16's local impls) against phase
+   16's iteration; a bound above the measured time means a wrong count.
+   It launches no kernel.
+23. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -325,6 +341,31 @@ MESH_TRAIN_SEQ = 4096
 MESH_PROFILE_STEPS = 4
 MESH_MOE_ARCH = "dbrx-132b"
 MESH_NO_DROP_CF = 8.0
+# phase 22: the dry-run's cells, each a subprocess on its own fake group,
+# and the one-rank grids held to phases 21 and 16
+DRYRUN_CELLS = (("cpals-yelp", None, "single"), ("cpals-yelp", None, "multi"),
+                ("llama3.2-3b", "train_4k", "single"),
+                ("dbrx-132b", "decode_32k", "single"),
+                ("dbrx-132b", "prefill_32k", "single"))
+DRYRUN_BUDGET_S = 150.0
+DRYRUN_ONE_RANK = r"""
+import json, sys
+from repro_torch.dist.collectives import make_mesh
+from repro_torch.launch import dryrun as D
+from repro_torch.models.config import ShapeConfig
+out, arch, seq, impls = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+D.init_fake_group(1)
+mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+D.run_cell(arch, f"train_1x{seq}", multi_pod=False, mesh=mesh,
+           shape=ShapeConfig(f"train_1x{seq}", seq, 1, "train"),
+           out_dir=out, tag="one_rank")
+rl, counts, info = D.trace_cpals("cpals-yelp", mesh,
+                                 local_impls=tuple(impls.split(",")))
+print("CPALS " + json.dumps({"roofline": rl.to_json(),
+                             "memory": counts["memory"],
+                             "info": {k: info[k] for k in (
+                                 "local_cap", "local_impls")}}))
+"""
 BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -1032,9 +1073,11 @@ def serving(torch, path: Path, cache: Path, ssess, sample_inds, card: str,
 
 
 def distributed(torch, ing, card: str, none: dict, zero_counts, read_counts,
-                check_against_segment) -> float:
+                check_against_segment) -> tuple[float, dict]:
     """Phase 16: the dist executor at world size 1 on NCCL (see the module
-    docstring).  Returns the phase's seconds."""
+    docstring).  Returns the phase's seconds and the ``shard_c=False``
+    fit's iteration: its seconds (the fit's, partition aside, over
+    ``NITERS``) and local impls."""
     import torch.distributed as dist
 
     import repro_torch.core.distributed as dist_mod
@@ -1068,6 +1111,7 @@ def distributed(torch, ing, card: str, none: dict, zero_counts, read_counts,
                      for k in ROUTINES_FUSED) + f" on {card}")
 
     real_partition = dist_mod.partition_tensor
+    iteration = {}
     for shard_c in (False, True):
         parts = []
 
@@ -1103,6 +1147,10 @@ def distributed(torch, ing, card: str, none: dict, zero_counts, read_counts,
                                  "plan")
         check_against_segment(ddec, f"dist shard_c={shard_c}", want=ldec,
                               against="local segment", tag="dist")
+        if not shard_c:
+            # phase 22 holds the dry-run's one-rank bound to it
+            iteration = {"s": loop_s / NITERS,
+                         "impls": dist_mod._local_impls_of(plan)}
 
     # the iteration body's local MTTKRPs on the one rank's block, as the
     # fit prepares it (a segment mode's entries sorted once), and the
@@ -1139,7 +1187,7 @@ def distributed(torch, ing, card: str, none: dict, zero_counts, read_counts,
           + "; longest segment per mode, padded / prepared: "
           + ", ".join(f"{a} / {b}" for a, b in longest) + f" on {card}")
     local.close()
-    return time.perf_counter() - start
+    return time.perf_counter() - start, iteration
 
 
 def launcher(torch, dev, card: str, none: dict, zero_counts, read_counts,
@@ -1903,9 +1951,10 @@ def _forced_logits(torch, model, batch: dict, tokens) -> object:
     return torch.stack(steps, dim=1)
 
 
-def lm_mesh(torch, dev, card: str, seed: int) -> float:
+def lm_mesh(torch, dev, card: str, seed: int) -> tuple[float, float]:
     """Phase 21: the production mesh's path on one card (see the module
-    docstring).  Returns the phase's seconds."""
+    docstring).  Returns the phase's seconds and those of the AdamW step
+    without the hook."""
     import dataclasses
 
     import numpy as np
@@ -2139,7 +2188,108 @@ def lm_mesh(torch, dev, card: str, seed: int) -> float:
         M.uninstall()
         if own:
             dist.destroy_process_group()
-    return time.perf_counter() - start
+    return time.perf_counter() - start, p_step_s
+
+
+def _cell_line(art: dict) -> str:
+    r, m = art["roofline"], art["memory"]
+    mix = ", ".join(f"{k} {int(v['count'])} x ({v['bytes']:.4g} B, wire "
+                    f"{v['wire']:.4g} B)"
+                    for k, v in sorted(r["collectives"].items()))
+    return (f"{art['cell']} on {art['mesh']}: dominant {r['dominant']}, "
+            f"bound {r['bound_s'] * 1e3:.4f} ms (compute "
+            f"{r['compute_s'] * 1e3:.4f}, memory {r['memory_s'] * 1e3:.4f}, "
+            f"collective {r['collective_s'] * 1e3:.4f} ms), useful ratio "
+            f"{r['useful_ratio']:.4f}, peak_estimate_gib "
+            f"{m['peak_estimate_gib']}; collectives: {mix or 'none'}; traced "
+            f"in {art['compile_s']:.2f} s")
+
+
+def dry_run(card: str, step_s: float, iteration: dict) -> float:
+    """Phase 22: the dry-run (see the module docstring): each of
+    ``DRYRUN_CELLS`` in a subprocess of its own (its fake group), and the
+    one-rank grids, all at once; every count is traced on ``meta`` and
+    turned into time by the H100's constants (``utils/roofline.py``).
+    Fails when a process fails or outlasts ``DRYRUN_BUDGET_S``, or when a
+    one-rank bound is not below the card's time.  Returns the phase's
+    seconds."""
+    start = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as out:
+        procs = {}
+        for arch, shape, mesh in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--mesh", mesh, "--out", out]
+            if shape:
+                cmd += ["--shape", shape]
+            procs[f"{arch} {shape or 'iteration'} {mesh}"] = cmd
+        procs["one-rank grids"] = [
+            sys.executable, "-c", DRYRUN_ONE_RANK, out, LM_ARCH,
+            str(MESH_TRAIN_SEQ), ",".join(iteration["impls"])]
+        running = {name: subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for name, cmd in procs.items()}
+        outs, failed = {}, []
+        try:
+            for name, p in running.items():
+                left = DRYRUN_BUDGET_S - (time.perf_counter() - start)
+                try:
+                    outs[name] = p.communicate(timeout=max(left, 1.0))[0]
+                except subprocess.TimeoutExpired:
+                    failed.append(f"{name}: past the {DRYRUN_BUDGET_S} s "
+                                  "budget")
+                    continue
+                if p.returncode:
+                    failed.append(f"{name}: exit {p.returncode}\n"
+                                  f"{outs[name][-3000:]}")
+        finally:
+            for p in running.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if failed:
+            raise AssertionError("the dry-run: " + "\n".join(failed))
+        arts = {p.stem: json.loads(p.read_text())
+                for p in sorted(Path(out).glob("*.json"))}
+    for name, art in arts.items():
+        if not name.endswith("one_rank"):
+            print(f"[dryrun] {_cell_line(art)} (traced counts over the H100 "
+                  f"constants, 989.4 / 66.9 TFLOP/s, 3.35 TB/s, links 450 / "
+                  f"50 GB/s; nothing measured on {card})")
+    if len(arts) != len(DRYRUN_CELLS) + 1:
+        raise AssertionError(f"the dry-run wrote {sorted(arts)}")
+
+    lm = arts[f"{LM_ARCH}__train_1x{MESH_TRAIN_SEQ}__single__one_rank"]
+    cp = json.loads(re.search(r"^CPALS (.*)$", outs["one-rank grids"],
+                              re.M).group(1))
+    checks = ((f"{LM_ARCH} one AdamW step at 1 x {MESH_TRAIN_SEQ} tokens",
+               lm["roofline"], step_s, "phase 21's step without the hook"),
+              ("cpals-yelp's dist iteration, local impls "
+               f"{','.join(iteration['impls'])}, cap "
+               f"{cp['info']['local_cap']} entries", cp["roofline"],
+               iteration["s"], "phase 16's shard_c=False iteration, "
+               f"(fit - partition) / {NITERS}"))
+    bad = []
+    for what, r, measured, source in checks:
+        ratio = r["bound_s"] / measured
+        print(f"[dryrun] one-rank grid, {what}: traced bound "
+              f"{r['bound_s']:.6f} s ({r['dominant']}; compute "
+              f"{r['compute_s']:.6f}, memory {r['memory_s']:.6f} s; "
+              f"{r['flops']:.4e} flops, {r['bytes_accessed']:.4e} bytes) "
+              f"against {measured:.6f} s measured ({source}) on {card}: "
+              f"bound / measured {ratio:.4f}")
+        if not ratio < 1.0:
+            bad.append(what)
+    if bad:
+        raise AssertionError(f"the dry-run's bound is above the card's "
+                             f"time for {bad}: the count is wrong")
+    seconds = time.perf_counter() - start
+    if seconds > DRYRUN_BUDGET_S:
+        raise AssertionError(f"the dry-run phase took {seconds:.1f} s, over "
+                             f"its {DRYRUN_BUDGET_S} s budget")
+    return seconds
 
 
 def _count_ep(torch, fn):
@@ -2954,8 +3104,9 @@ def main() -> int:
         del ssess
 
         # --- 16. the dist executor on a one-rank NCCL group ---------------
-        dist_s = distributed(torch, ing, card, none, zero_counts,
-                             read_counts, check_against_segment)
+        dist_s, dist_iteration = distributed(
+            torch, ing, card, none, zero_counts, read_counts,
+            check_against_segment)
         del ing
 
     # --- 17. the decomposition launcher: serve_cpd on full yelp -----------
@@ -2972,9 +3123,12 @@ def main() -> int:
     train_s = lm_training(torch, dev, card, args.seed)
 
     # --- 21. the production mesh's path on one card ---------------------
-    mesh_s = lm_mesh(torch, dev, card, args.seed)
+    mesh_s, mesh_step_s = lm_mesh(torch, dev, card, args.seed)
 
-    # --- 22. results --------------------------------------------------------
+    # --- 22. the dry-run on fake 256/512-rank groups, and its bounds ------
+    dryrun_s = dry_run(card, mesh_step_s, dist_iteration)
+
+    # --- 23. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",
@@ -3015,6 +3169,8 @@ def main() -> int:
           f"{card}")
     print(f"[train] the LM training phase ran {train_s:.1f} s on {card}")
     print(f"[mesh] the mesh phase ran {mesh_s:.1f} s on {card}")
+    print(f"[dryrun] the dry-run phase ran {dryrun_s:.1f} s on {card}'s "
+          f"host")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

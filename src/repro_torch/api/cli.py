@@ -12,6 +12,7 @@
     python -m repro_torch metrics artifacts/trace   # metrics table
     python -m repro_torch fit     --dataset yelp --trace-dir t --http-port 9100
     python -m repro_torch serve-daemon --source data.tnsb --port 8080
+    python -m repro_torch dryrun  --workload cpals-yelp [--mesh multi]
     torchrun --nproc-per-node N python -m repro_torch fit --executor dist ...
 
 Every subcommand builds one RunConfig (``--config file.json`` loads a base;
@@ -19,8 +20,9 @@ explicit flags override it field by field) and drives a
 :class:`~repro_torch.api.Session`.  The same argv gives the same RunConfig
 as ``python -m repro``.  ``--device`` (default: the CUDA card) is the
 Session's, not the config's; ``--device cpu`` runs on the CPU.  The JAX
-package's ``ratchet`` and ``dryrun`` subcommands come with the port's
-benchmarks and its dry-run tooling.
+package's ``ratchet`` subcommand delegates to its ``benchmarks.ratchet``,
+and the benchmark folder has no port (ROADMAP §1 item 9), so neither does
+the subcommand.
 """
 from __future__ import annotations
 
@@ -425,6 +427,21 @@ def cmd_metrics(args) -> int:
     return 0
 
 
+def cmd_dryrun(args) -> int:
+    """Dry-run of one cell.  Re-execs ``repro_torch.launch.dryrun`` in a
+    fresh interpreter: its fake process group of 256 or 512 ranks is
+    process-global and must be the only group of its process."""
+    import subprocess
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", args.workload, "--mesh", args.mesh]
+    if args.tag:
+        cmd += ["--tag", args.tag]
+    for ov in args.override:
+        cmd += ["--override", ov]
+    return subprocess.call(cmd)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch",
@@ -486,6 +503,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("dir", help="directory holding metrics.json (or the "
                                "file itself)")
     p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser(
+        "dryrun",
+        help="trace one cell on a fake 256/512-rank group "
+             "(repro_torch.launch.dryrun)")
+    p.add_argument("--workload", required=True,
+                   help="cpals-<workload> or an arch id")
+    p.add_argument("--mesh", choices=["single", "multi"], default="single")
+    p.add_argument("--tag", default="")
+    p.add_argument("--override", action="append", default=[])
+    p.set_defaults(fn=cmd_dryrun)
 
     args = ap.parse_args(argv)
     if args.list_methods:

@@ -20,12 +20,13 @@ Every rank runs the same loop on its own blocks (what the reference's
 ``gather_scatter`` (``index_add_``) or ``segment`` (a sorted segment sum)
 reduction on the rank's device, the only two the reference's body can
 express (:data:`DIST_IMPLS`), so this path launches none of the port's
-hand-written kernels.  The reference's ``build_dist_cpals_lowered`` (XLA
-lowering for the dry-run) has no counterpart here.
+hand-written kernels.  :func:`build_dist_cpals_lowered` gives the dry-run
+(``repro_torch.launch.dryrun``) the same body on ``meta`` blocks.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -448,3 +449,61 @@ def dist_cp_als(t, rank: int, mesh: Mesh, *, niters: int = 10,
     if ing is not None:
         factors = ing.restore_factors(factors)
     return factors, lam, fit
+
+
+def build_dist_cpals_lowered(workload: str, mesh: Mesh, *,
+                             shard_c: bool = False,
+                             mode_order: str = "natural",
+                             local_impls: tuple[str, str, str] = ("scatter",) * 3):
+    """One distributed ALS iteration of a paper workload on this rank's
+    ``meta`` blocks, the CP-ALS entry of the dry-run matrix (the
+    counterpart of the reference's abstract lowering).  Returns
+    ``(iteration, info)``: ``iteration()`` runs :func:`make_dist_iteration`'s
+    body once, unchanged, and ``iteration.args`` are its arguments.
+
+    As in the reference, a rank holds ``cap`` entries (its even share of
+    the non-zeros, 20% over) and no pruning happens: the block is built as
+    :func:`local_block` leaves it, at ``cap`` entries, with each
+    ``segment`` mode's sorted copy and its (``meta``) entries per row."""
+    from repro_torch.configs import CPALS_WORKLOADS
+
+    dims, nnz, rank = CPALS_WORKLOADS[workload]
+    if mode_order == "auto":
+        dims = tuple(sorted(dims, reverse=True))
+    ax = cpals_axes(mesh)
+    n_row, n_col, n_all = ax.n_row, ax.n_col, ax.n_all
+    i_p = -(-dims[0] // n_row) * n_row
+    j_p = -(-dims[1] // n_col) * n_col
+    cap = int(np.ceil(nnz / (n_row * n_col) * 1.2))
+    k_p = -(-dims[2] // n_all) * n_all if shard_c else dims[2]
+    dims_p = (i_p, j_p, k_p)
+    bi, bj = i_p // n_row, j_p // n_col
+
+    meta = torch.device("meta")
+    f32 = dict(dtype=torch.float32, device=meta)
+    linds = torch.empty((cap, 3), dtype=torch.int32, device=meta)
+    vals = torch.empty((cap,), **f32)
+    per_mode = []
+    for impl, rows in zip(local_impls, (bi, bj, k_p)):
+        if impl == "segment":
+            per_mode.append((torch.empty_like(linds), torch.empty_like(vals),
+                             torch.empty((rows,), dtype=torch.int64,
+                                         device=meta)))
+        else:
+            per_mode.append((linds, vals, None))
+    block = LocalBlock(*(tuple(x) for x in zip(*per_mode)))
+    a = torch.empty((bi, rank), **f32)
+    b = torch.empty((bj, rank), **f32)
+    c = torch.empty((k_p // n_all if shard_c else k_p, rank), **f32)
+    nx = torch.empty((), **f32)
+
+    body = make_dist_iteration(mesh, dims_p, rank, shard_c=shard_c,
+                               local_impls=local_impls)
+    iteration = functools.partial(body, block, a, b, c, nx)
+    # MTTKRP flops: ~5 R nnz per mode (2R gather-products, R scatter-add,
+    # 2R for the Khatri-Rao partial) x 3 modes, plus small dense terms.
+    info = {"workload": workload, "dims": dims, "nnz": nnz, "rank": rank,
+            "local_cap": cap, "shard_c": shard_c, "mode_order": mode_order,
+            "local_impls": list(local_impls),
+            "model_flops": 3 * 5.0 * rank * nnz}
+    return iteration, info

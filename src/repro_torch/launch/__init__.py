@@ -13,8 +13,10 @@
                rules_for, spec_for), sharding_fn / batch_sharding as DTensor
                placements, place (distribute a tree) and the activation
                hook (install)
-
-The dry-run is not ported yet (ROADMAP §1 item 10c).
+    dryrun.py  the dry-run: one step of every (arch x shape x mesh) cell
+               and each cpals workload's iteration traced on a fake
+               256/512-rank group, on meta DTensors, into the H100
+               roofline (``python -m repro_torch.launch.dryrun``)
 """
 from .mesh import make_production_mesh, rules_for, sharding_fn
 

@@ -38,11 +38,14 @@ from repro_torch.dist.collectives import (DATA_AXIS, MODEL_AXIS, POD_AXIS,
                                           make_mesh, placements)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The production grid on the current process group; ``device`` as in
+    ``make_mesh`` (the dry-run names ``"cuda"`` over its fake group, so
+    DTensor picks the card's collectives)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ((POD_AXIS, DATA_AXIS, MODEL_AXIS) if multi_pod
             else (DATA_AXIS, MODEL_AXIS))
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device=device)
 
 
 # ---------------------------------------------------------------------------

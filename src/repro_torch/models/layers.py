@@ -131,6 +131,50 @@ def _attend(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return DTensor.from_local(out, dm, pl, run_check=False)
 
 
+def gathered(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """``w`` with its split of dim ``dim`` gathered, where ``w`` is a
+    DTensor split there (an FSDP weight's embed dim, on the data axes), as
+    the reference's partitioner gathers an FSDP weight at its use; else
+    ``w``.  (Left split, DTensor's einsum may split the output on another
+    axis and then cannot unflatten a head count that axis does not
+    divide.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(w, DTensor) or Shard(dim) not in w.placements:
+        return w
+    return w.redistribute(w.device_mesh, [
+        Replicate() if p == Shard(dim) else p for p in w.placements])
+
+
+def split_last(y: torch.Tensor, h: int) -> torch.Tensor:
+    """``y`` (..., h * n) as (..., h, n) (heads, or groups); a DTensor
+    split on its last dim over axes whose size does not divide ``h`` is
+    gathered there first (DTensor cannot unflatten a split that falls
+    inside a group)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if isinstance(y, DTensor):
+        last = Shard(y.ndim - 1)
+        axes = [i for i, p in enumerate(y.placements) if p == last]
+        if axes and h % math.prod(y.device_mesh.size(i) for i in axes):
+            y = y.redistribute(y.device_mesh, [
+                Replicate() if p == last else p for p in y.placements])
+    return y.reshape(*y.shape[:-1], h, y.shape[-1] // h)
+
+
+def blockwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an ``fn`` that DTensor has no rule for (or no rule
+    for its backward) and that treats the blocks of ``x``'s split dims
+    apart (pointwise, or along an unsplit dim): on each rank's block of a
+    DTensor ``x``, placed as ``x``; ``fn(x)`` on a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return fn(x)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False)
+
+
 def mixed():
     """The context an installed hook's computation runs in: a plain tensor
     that meets a DTensor there (a mask, positions, RoPE's angles, a
@@ -188,7 +232,8 @@ def _freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 
 def rope_sincos(positions: torch.Tensor, head_dim: int, theta: float):
     """positions (B, S) -> sin/cos (B, S, hd/2), f32."""
-    freqs = _freqs(head_dim, theta, positions.device)
+    freqs = replicated_like(_freqs(head_dim, theta, positions.device),
+                            positions)
     ang = positions.float()[..., None] * freqs  # (B,S,half)
     return torch.sin(ang), torch.cos(ang)
 
@@ -201,7 +246,10 @@ def mrope_sincos(positions: torch.Tensor, head_dim: int, theta: float,
     half = head_dim // 2
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} do not sum to {half}")
-    freqs = _freqs(head_dim, theta, positions.device)
+    # placed positions (a batch leaf) meet the frequencies in the remat's
+    # recompute too, outside ``mixed``
+    freqs = replicated_like(_freqs(head_dim, theta, positions.device),
+                            positions)
     ang = positions.float()[..., None] * freqs  # (3, B, S, half)
     parts = []
     start = 0
@@ -397,7 +445,7 @@ def attention(
         s == 1.
     """
     b, s, d = x.shape
-    q = shard_act(torch.einsum("bsd,dhk->bshk", x, p["wq"]),
+    q = shard_act(torch.einsum("bsd,dhk->bshk", x, gathered(p["wq"], 0)),
                   ("act_batch", None, "heads", None))
     if memory is not None:
         # cross-attention: K/V from encoder memory (cached after prefill)
@@ -405,8 +453,8 @@ def attention(
             k, v = cache["ck"], cache["cv"]
             new_cache = cache
         else:
-            k = torch.einsum("btd,dnk->btnk", memory, p["wk"])
-            v = torch.einsum("btd,dnk->btnk", memory, p["wv"])
+            k = torch.einsum("btd,dnk->btnk", memory, gathered(p["wk"], 0))
+            v = torch.einsum("btd,dnk->btnk", memory, gathered(p["wv"], 0))
             new_cache = None
             if cache is not None and "ck" in cache:  # prefill fills it
                 cache["ck"].copy_(k)
@@ -417,11 +465,12 @@ def attention(
         mask = torch.ones((1, 1, 1, s, k.shape[1]), dtype=torch.bool,
                           device=x.device)
         out = _attend(functools.partial(_sdpa, cfg), q, k, v, mask)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
+        return (torch.einsum("bshk,hkd->bsd", out, gathered(p["wo"], 2)),
+                new_cache)
 
-    k = shard_act(torch.einsum("bsd,dnk->bsnk", x, p["wk"]),
+    k = shard_act(torch.einsum("bsd,dnk->bsnk", x, gathered(p["wk"], 0)),
                   ("act_batch", None, "kv_heads", None))
-    v = shard_act(torch.einsum("bsd,dnk->bsnk", x, p["wv"]),
+    v = shard_act(torch.einsum("bsd,dnk->bsnk", x, gathered(p["wv"], 0)),
                   ("act_batch", None, "kv_heads", None))
 
     if cache is not None and s == 1 and "k" in cache:
@@ -446,7 +495,8 @@ def attention(
         out = _attend(functools.partial(_sdpa, cfg), q, ck, cv,
                       valid[None, None, None, None, :])
         new_cache = {"k": ck, "v": cv, "slot_pos": spos}
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
+        return (torch.einsum("bshk,hkd->bsd", out, gathered(p["wo"], 2)),
+                new_cache)
 
     # ---- train / prefill: full sequence ----
     if positions is None:
@@ -460,7 +510,7 @@ def attention(
         mask = _train_mask(mask_kind, s, cfg.window,
                            x.device)[None, None, None, :, :]
         out = _attend(functools.partial(_sdpa, cfg), q, k, v, mask)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out, gathered(p["wo"], 2))
 
     new_cache = None
     if cache is not None:
@@ -472,8 +522,11 @@ def attention(
             spos[:s] = torch.arange(s, dtype=spos.dtype, device=spos.device)
         else:  # local ring: keep the last `cap` tokens, slot = pos % cap
             roll = (s - cap) % cap
-            ck.copy_(torch.roll(k[:, s - cap:], roll, dims=1))
-            cv.copy_(torch.roll(v[:, s - cap:], roll, dims=1))
+            # along the sequence, which no rule splits
+            ck.copy_(blockwise(lambda t: torch.roll(t, roll, dims=1),
+                               k[:, s - cap:]))
+            cv.copy_(blockwise(lambda t: torch.roll(t, roll, dims=1),
+                               v[:, s - cap:]))
             spos.copy_(torch.roll(torch.arange(s - cap, s, device=spos.device),
                                   roll, dims=0))
         new_cache = {"k": ck, "v": cv, "slot_pos": spos}
@@ -546,9 +599,11 @@ def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        out = torch.einsum("bsd,vd->bsv", x, p["table"].to(x.dtype))
+        out = torch.einsum("bsd,vd->bsv", x,
+                           gathered(p["table"], 1).to(x.dtype))
     else:
-        out = torch.einsum("bsd,dv->bsv", x, p["head"].to(x.dtype))
+        out = torch.einsum("bsd,dv->bsv", x,
+                           gathered(p["head"], 0).to(x.dtype))
     return shard_act(out, ("act_batch", None, "vocab"))
 
 

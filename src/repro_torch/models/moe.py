@@ -205,8 +205,9 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 def moe_ffn_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh):
     """The expert-parallel MoE FFN on ``mesh`` (a grid with a DeviceMesh):
-    ``x`` (B, S, D) and the parameters placed, the output placed as ``x``'s
-    blocks are, ``moe_drop_frac`` averaged over every rank.
+    ``x`` (B, S, D) and the parameters placed, the output placed by the
+    activation rules (batch split, sequence whole), ``moe_drop_frac``
+    averaged over every rank.
 
     Tokens split over (data axes x model): the sequence splits over the
     expert axis, so routing and the send buffers are local.  The expert
@@ -286,9 +287,16 @@ def moe_ffn_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh):
         out_specs=((dp_axes, "model", None), ()))
     out, drop = mapped(x, p["router"], p["wg"], p["wu"], p["wd"])
 
+    # back to the residual stream's layout (each model rank the whole
+    # sequence), whose flattening of (batch, sequence) in the next block's
+    # products, and in the shared experts' backward, some torch releases
+    # refuse across a split sequence; the shared experts' sum is placed
+    # alike, so that the two parts are added whole
+    out = shard_act(out, ("act_batch", None, None))
     if e.num_shared:
         xt = x.reshape(b * s, d)
         hs = _expert_act(cfg, xt @ p["shared_wg"], xt @ p["shared_wu"])
-        out = out + (hs @ p["shared_wd"]).reshape(b, s, d)
+        out = out + shard_act((hs @ p["shared_wd"]).reshape(b, s, d),
+                              ("act_batch", None, None))
 
     return out, {"moe_drop_frac": drop}

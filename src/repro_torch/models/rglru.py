@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import layers as L
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -47,8 +48,11 @@ def _causal_conv1d(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     Returns (out, new_prev)."""
     cw = w.shape[0]
     if prev is None:
-        prev = torch.zeros((u.shape[0], cw - 1, u.shape[-1]), dtype=u.dtype,
-                           device=u.device)
+        # replicated under a mesh: the remat's recompute runs outside
+        # ``layers.mixed``
+        prev = L.replicated_like(torch.zeros(
+            (u.shape[0], cw - 1, u.shape[-1]), dtype=u.dtype,
+            device=u.device), u)
     ext = torch.cat([prev.to(u.dtype), u], dim=1)  # (B, S+CW-1, W)
     s = u.shape[1]
     out = ext[:, 0:s] * w[0][None, None]
@@ -88,9 +92,14 @@ def rglru_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     u, new_conv = _causal_conv1d(u, p["conv_w"], p["conv_b"], prev_conv)
 
     uf = u.float()
-    rg = torch.sigmoid(uf @ p["w_rg"].float() + p["b_rg"])
-    ig = torch.sigmoid(uf @ p["w_ig"].float() + p["b_ig"])
-    log_a = C_RGLRU * F.logsigmoid(p["lam"].float()) * rg
+    # the gates' products summed over the ranks before the bias is added
+    # (a partial sum plus a split bias has no redistribution in some torch
+    # releases)
+    rg = torch.sigmoid(L.shard_act(uf @ p["w_rg"].float(),
+                                   ("act_batch", None, "rnn")) + p["b_rg"])
+    ig = torch.sigmoid(L.shard_act(uf @ p["w_ig"].float(),
+                                   ("act_batch", None, "rnn")) + p["b_ig"])
+    log_a = C_RGLRU * L.blockwise(F.logsigmoid, p["lam"].float()) * rg
     a = torch.exp(log_a)
     b_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (ig * uf)
 

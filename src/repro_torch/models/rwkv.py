@@ -21,9 +21,13 @@ the given cache.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
+from . import layers as L
 from .config import ModelConfig
 from .params import ParamSpec
 
@@ -74,8 +78,7 @@ def _ddlerp(p: dict, x: torch.Tensor, xs: torch.Tensor):
     dx = xs - x
     mixed = x + dx * p["mu"][0][None, None]
     lora = torch.tanh(mixed @ p["lora_a"])
-    b, s, _ = lora.shape
-    lora = lora.reshape(b, s, 5, LORA_R)
+    lora = L.split_last(lora, 5)
     dyn = torch.einsum("bsfr,frd->bsfd", lora, p["lora_b"])  # (B,S,5,D)
     mus = p["mu"][None, None] + dyn
     return tuple(x + dx * mus[:, :, i] for i in range(5))
@@ -149,6 +152,54 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(r.dtype), st
 
 
+def _wkv_norm(fn, r, k, v, w, u, state, ln_w, n: int):
+    """``fn(r, k, v, w, u, state)`` (``wkv_scan`` or ``wkv_chunked``) and
+    the per-head group norm of its output: (out (B, S, H*N), state).  On a
+    DTensor ``r``, on each rank's block of batch rows and heads, as
+    ``layers._attend`` runs attention: the recurrence and the norm are
+    independent per (row, head), so a block's are the plain path's on that
+    block, and the heads merge into one dim on the block (DTensor cannot
+    split a gradient's dim at a head that the axis does not divide).  The
+    heads stay split only where ``r``'s are and the axes divide them.  A
+    rank's gradient of ``u`` and ``ln_w`` is its rows' part: a partial sum
+    over the batch's axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    def core(r, k, v, w, u, state, ln_w):
+        wkv, new_state = fn(r, k, v, w, u, state)
+        return (_group_norm(wkv.reshape(*wkv.shape[:2], -1), ln_w, n),
+                new_state)
+
+    if not isinstance(r, DTensor):
+        return core(r, k, v, w, u, state, ln_w)
+    dm = r.device_mesh
+    batch = [i for i, p in enumerate(r.placements) if p == Shard(0)]
+    heads = [i for i, p in enumerate(r.placements) if p == Shard(2)]
+    if heads and r.shape[2] % math.prod(dm.size(i) for i in heads):
+        heads = []
+
+    def placed(bdim, hdim):
+        return [Shard(bdim) if i in batch and bdim is not None
+                else Shard(hdim) if i in heads else Replicate()
+                for i in range(dm.ndim)]
+
+    def block(t, pl, **kw):
+        return L.replicated_like(t, r).redistribute(dm, pl).to_local(**kw)
+
+    def param(t, pl):
+        return block(t, pl, grad_placements=[
+            Partial() if i in batch else q for i, q in enumerate(pl)])
+
+    x_pl, s_pl = placed(0, 2), placed(0, 1)
+    blocks = [block(t, x_pl) for t in (r, k, v, w)]
+    sl = None if state is None else block(state, s_pl)
+    with L._unhooked():
+        out, new_state = core(*blocks, param(u, placed(None, 0)), sl,
+                              param(ln_w, placed(None, 0)))
+    return (DTensor.from_local(out, dm, x_pl, run_check=False),
+            DTensor.from_local(new_state, dm, s_pl, run_check=False))
+
+
 def _group_norm(x: torch.Tensor, w: torch.Tensor, n: int,
                 eps: float = 64e-5) -> torch.Tensor:
     """Per-head group norm over the flattened (H*N) dim (RWKV ln_x)."""
@@ -174,20 +225,21 @@ def time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict | None,
     logw = p["w0"][None, None] + torch.tanh(xw @ p["wlora_a"]) @ p["wlora_b"]
     w = torch.exp(-torch.exp(logw.float()))
 
-    r = (xr @ p["wr"]).reshape(b, s, h, n)
-    k = (xk @ p["wk"]).reshape(b, s, h, n)
-    v = (xv @ p["wv"]).reshape(b, s, h, n)
+    r = L.split_last(xr @ p["wr"], h)
+    k = L.split_last(xk @ p["wk"], h)
+    v = L.split_last(xv @ p["wv"], h)
     g = F.silu(xg @ p["wg"])
 
     state = cache["state"] if cache is not None else None
-    wh = w.reshape(b, s, h, n)
+    wh = L.split_last(w, h)
     if use_chunked and s % 32 == 0 and s > 32:
         chunk = 128 if s % 128 == 0 else 32
-        wkv, new_state = wkv_chunked(r, k, v, wh, p["u"], state, chunk=chunk)
+        fn = functools.partial(wkv_chunked, chunk=chunk)
     else:
-        wkv, new_state = wkv_scan(r, k, v, wh, p["u"], state)
+        fn = wkv_scan
+    wkv, new_state = _wkv_norm(fn, r, k, v, wh, p["u"], state, p["ln_w"], n)
 
-    out = _group_norm(wkv.reshape(b, s, d), p["ln_w"], n) * g
+    out = wkv * g
     out = out @ p["wo"]
     if cache is not None:
         cache["state"].copy_(new_state)

@@ -291,7 +291,11 @@ class Model(nn.Module):
     def _inputs_to_x(self, params: dict, batch: dict) -> torch.Tensor:
         cfg = self.cfg
         if cfg.input_mode == "embeds":
-            x = batch["embeds"].to(cfg.cdtype)
+            # placed on the batch axes, as ``layers.embed`` places the
+            # tokens' rows: a plain input that autograd saved would meet a
+            # DTensor gradient in the backward
+            x = L.shard_act(batch["embeds"].to(cfg.cdtype),
+                            ("act_batch", None, None))
             if cfg.scale_embed:
                 x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                      device=x.device)
@@ -300,7 +304,8 @@ class Model(nn.Module):
 
     def _encode(self, params: dict, batch: dict) -> torch.Tensor:
         cfg = self.cfg
-        x = batch["src_embeds"].to(cfg.cdtype)
+        x = L.shard_act(batch["src_embeds"].to(cfg.cdtype),
+                        ("act_batch", None, None))
         enc = params["encoder"]
         ctx = {"mask_kind": _block_mask_kind(cfg, "attn", encoder=True)}
         reps = tree_map(lambda a: a.unbind(0), enc["stack"])

@@ -1,11 +1,21 @@
-"""The planner's per-mode table (counterpart of ``repro.utils.report``'s
-``plan_report``): the same text for the same plan, printed by the front
-door's ``plan`` and ``fit`` subcommands.
+"""The planner's per-mode table and the dry-run's tables (counterpart of
+``repro.utils.report``): the same text for the same plan or artifacts.
 
-The JAX package's dry-run and roofline tables wait for the port of its
-dry-run tooling.
+``plan_report`` is printed by the front door's ``plan`` and ``fit``
+subcommands and by the dry-run; the §Dry-run and §Roofline tables read the
+artifact JSONs ``repro_torch.launch.dryrun`` writes:
+
+  PYTHONPATH=src python -m repro_torch.utils.report [--dir artifacts/dryrun_torch]
 """
 from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+
+def load_cells(d: Path) -> list[dict]:
+    return [json.loads(p.read_text()) for p in sorted(d.glob("*.json"))]
 
 
 def plan_report(plan, *, reorder_deltas=None, method=None,
@@ -94,3 +104,81 @@ def _provenance_footer(prov: dict) -> str:
         at = prov["autotune"]
         parts.append(f"autotune hits={at['hits']} misses={at['misses']}")
     return "# provenance: " + " | ".join(parts)
+
+
+def _fmt_s(x: float) -> str:
+    if x >= 1.0:
+        return f"{x:.2f}s"
+    return f"{x*1e3:.1f}ms"
+
+
+def dryrun_table(cells: list[dict]) -> str:
+    rows = ["| cell | mesh | compile | peak/dev | args/dev | collective mix |",
+            "|---|---|---|---|---|---|"]
+    for c in cells:
+        if "skipped" in c:
+            rows.append(f"| {c['cell']} | — | SKIP | — | — | {c['skipped']} |")
+            continue
+        mesh = "x".join(str(v) for v in c["mesh"].values())
+        colls = c["roofline"]["collectives"]
+        mix = " ".join(f"{k.split('-')[-1]}:{int(v['count'])}"
+                       for k, v in sorted(colls.items()))
+        rows.append(
+            f"| {c['cell']} | {mesh} | {c['compile_s']:.1f}s "
+            f"| {c['memory']['peak_estimate_gib']:.1f}GiB "
+            f"| {c['memory']['argument_bytes']/2**30:.2f}GiB | {mix} |")
+    return "\n".join(rows)
+
+
+def roofline_table(cells: list[dict], *, single_only: bool = True) -> str:
+    rows = ["| cell | compute | memory | collective | dominant | bound "
+            "| MODEL_FLOPS/HLO | note |",
+            "|---|---|---|---|---|---|---|---|"]
+    for c in cells:
+        if "skipped" in c:
+            continue
+        if single_only and "__multi" in c["cell"]:
+            continue
+        r = c["roofline"]
+        useful = r["useful_ratio"]
+        note = ""
+        if useful > 1.0:
+            note = "HLO<6ND (sparse/active<total)"
+        rows.append(
+            f"| {c['cell'].replace('__single','')} | {_fmt_s(r['compute_s'])} "
+            f"| {_fmt_s(r['memory_s'])} | {_fmt_s(r['collective_s'])} "
+            f"| **{r['dominant']}** | {_fmt_s(r['bound_s'])} "
+            f"| {useful:.2f} | {note} |")
+    return "\n".join(rows)
+
+
+def pick_hillclimb(cells: list[dict]) -> list[str]:
+    """worst useful ratio, most collective-bound, paper-representative."""
+    live = [c for c in cells if "skipped" not in c and "__single" in c["cell"]
+            and not c["cell"].startswith("cpals")]
+    worst = min(live, key=lambda c: min(1.0, c["roofline"]["useful_ratio"])
+                / max(c["roofline"]["bound_s"], 1e-9)
+                * c["roofline"]["compute_s"])
+    coll = max(live, key=lambda c: c["roofline"]["collective_s"]
+               / max(c["roofline"]["bound_s"], 1e-9))
+    return [worst["cell"], coll["cell"], "cpals-nell2__iteration__single"]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", type=Path,
+                    default=Path("artifacts/dryrun_torch"))
+    ap.add_argument("--section", choices=["dryrun", "roofline", "pick"],
+                    default="roofline")
+    args = ap.parse_args(argv)
+    cells = load_cells(args.dir)
+    if args.section == "dryrun":
+        print(dryrun_table(cells))
+    elif args.section == "roofline":
+        print(roofline_table(cells))
+    else:
+        print(pick_hillclimb(cells))
+
+
+if __name__ == "__main__":
+    main()
