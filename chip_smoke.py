@@ -2,7 +2,8 @@
 """Drive the PyTorch port's CP-ALS, Tucker, ingest, HALS, checkpoint,
 streaming, front-door, serving, distributed, launcher, LM serving (every LM
 family), LM training and production-mesh paths on one CUDA card and check
-them, then the dry-run's traced bounds against the card's times.
+them, then the dry-run's traced bounds against the card's times, and the
+quickstart example through the hand-written MTTKRP.
 
 Run from the root of the repository, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -245,7 +246,8 @@ Phases; any failure raises and exits non-zero:
    ``torch.profiler`` (kernels a step, busy share), and one AdamW step at
    1 x 4096 tokens from the same zero state (the placed state through
    ``place``): loss within a relative 1e-2, every parameter after it within
-   2e-2; prefill s, decode ms a step, step s and peak GB each way, and
+   2e-2, and the logits and the loss bit-equal with the hook and without;
+   prefill s, decode ms a step, step s and peak GB each way, and
    their differences, the host cost of DTensor's dispatch.  Then
    dbrx-132b at phase 19's cut (4 of 40 layers), at capacity factor 8
    (nothing dropped) and at the preset's 1.25: layer 0's MoE FFN,
@@ -260,20 +262,29 @@ Phases; any failure raises and exits non-zero:
 22. The dry-run (``repro_torch.launch.dryrun``), on the card's host, each
    process on a fake process group of its own: ``cpals-yelp``'s
    distributed iteration on the single-pod (16 x 16 = 256 ranks) and
-   multi-pod (2 x 16 x 16 = 512) grids, llama3.2-3b ``train_4k``,
-   dbrx-132b ``decode_32k`` (a step's one position takes the dense MoE
-   dispatch) and ``prefill_32k`` (``moe_ffn_ep``'s two all-to-alls a
-   layer) on the single-pod grid, all at once, within 150 s: each cell's
-   dominant term,
-   bound, ``peak_estimate_gib`` and collective mix, traced on ``meta`` and
-   turned into time by the H100's constants (nothing of it measured on
-   the card).  Then two bounds traced the same way on a one-rank grid
+   multi-pod (2 x 16 x 16 = 512) grids, llama3.2-3b ``train_4k`` without
+   and with ``rules:flash_q="model"``, gemma-7b ``train_4k``, dbrx-132b
+   ``decode_32k`` (a step's one position takes the dense MoE dispatch) and
+   ``prefill_32k`` (``moe_ffn_ep``'s two all-to-alls a layer) on the
+   single-pod grid, all at once, within 150 s: each cell's dominant term,
+   bound, useful ratio, ``peak_estimate_gib`` and collective mix, traced
+   on ``meta`` and turned into time by the H100's constants (nothing of it
+   measured on the card).  The train step must be split as the
+   reference's rules split it: gemma-7b's useful ratio at least 0.4, every
+   ``train_4k`` peak a rank at most 80 GiB, and llama's useful ratio with
+   ``flash_q`` at least 1.25 times its ratio without.  Then two bounds
+   traced the same way on a one-rank grid
    (world 1), each held below the card's own time: llama3.2-3b's AdamW
    step at 1 x 4096 tokens against phase 21's step without the hook, and
    ``cpals-yelp``'s dist iteration (phase 16's local impls) against phase
    16's iteration; a bound above the measured time means a wrong count.
    It launches no kernel.
-23. One JSON line of kernel numbers, then, as the last line,
+23. ``examples/quickstart_torch.py`` through its ``main``: ``--impl
+   segment``, then ``--impl cuda`` with the counts set to 0 just before:
+   K1 launches 3 modes x 10 iterations = 30 times and nothing else, and
+   from the same seed the fit is within 1e-5 of ``segment``'s, lambda and
+   each factor within a relative 3e-2, as in phase 5.
+24. One JSON line of kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
@@ -343,11 +354,22 @@ MESH_MOE_ARCH = "dbrx-132b"
 MESH_NO_DROP_CF = 8.0
 # phase 22: the dry-run's cells, each a subprocess on its own fake group,
 # and the one-rank grids held to phases 21 and 16
-DRYRUN_CELLS = (("cpals-yelp", None, "single"), ("cpals-yelp", None, "multi"),
-                ("llama3.2-3b", "train_4k", "single"),
-                ("dbrx-132b", "decode_32k", "single"),
-                ("dbrx-132b", "prefill_32k", "single"))
+# (arch, shape, mesh, rule overrides)
+DRYRUN_CELLS = (("cpals-yelp", None, "single", None),
+                ("cpals-yelp", None, "multi", None),
+                ("llama3.2-3b", "train_4k", "single", None),
+                ("llama3.2-3b", "train_4k", "single", {"flash_q": "model"}),
+                ("gemma-7b", "train_4k", "single", None),
+                ("dbrx-132b", "decode_32k", "single", None),
+                ("dbrx-132b", "prefill_32k", "single", None))
 DRYRUN_BUDGET_S = 150.0
+# the train step split as the reference's rules split it: gemma-7b's useful
+# ratio and every train_4k peak a rank, and llama's gain from rules:flash_q
+DRYRUN_USEFUL_MIN = 0.4
+DRYRUN_PEAK_MAX_GIB = 80.0
+DRYRUN_FLASH_Q_GAIN = 1.25
+# phase 23: examples/quickstart_torch.py, 10 iterations over 3 modes
+QUICKSTART_ITERS = 10
 DRYRUN_ONE_RANK = r"""
 import json, sys
 from repro_torch.dist.collectives import make_mesh
@@ -2029,6 +2051,13 @@ def lm_mesh(torch, dev, card: str, seed: int) -> tuple[float, float]:
         if not rel <= 1e-2:
             raise AssertionError(f"{LM_ARCH} mesh step loss {m_loss} vs "
                                  f"{p_loss}: relative {rel:.3e} > 1e-2")
+        # on one rank the hook moves nothing between ranks: the residual
+        # stream's reductions and the vocab-parallel loss are the unsharded
+        # model's own ops, bit for bit
+        if err != 0.0 or m_loss != p_loss:
+            raise AssertionError(f"{LM_ARCH} on one rank: logits max |diff| "
+                                 f"{err:.3e}, loss {m_loss!r} vs {p_loss!r}; "
+                                 f"not bit-equal with the hook")
         perr = max(max_err(torch, _whole(v).float(), w1[k].float(),
                            rtol=0.0, atol=2e-2,
                            what=f"{LM_ARCH} {k} after the step, mesh vs "
@@ -2205,6 +2234,73 @@ def _cell_line(art: dict) -> str:
             f"in {art['compile_s']:.2f} s")
 
 
+def split_checks(arts: dict, card: str) -> None:
+    """The production train step split as the reference's rules split it:
+    gemma-7b ``train_4k``'s useful ratio at least ``DRYRUN_USEFUL_MIN``,
+    every ``train_4k`` cell's peak a rank at most ``DRYRUN_PEAK_MAX_GIB``,
+    and llama3.2-3b's useful ratio with ``rules:flash_q`` at least
+    ``DRYRUN_FLASH_Q_GAIN`` times its ratio without."""
+    import torch
+
+    gemma = arts["gemma-7b__train_4k__single"]["roofline"]
+    llama = arts[f"{LM_ARCH}__train_4k__single"]["roofline"]
+    flash_q = arts[f"{LM_ARCH}__train_4k__single__flash_q"]["roofline"]
+    peaks = {name: art["memory"]["peak_estimate_gib"]
+             for name, art in arts.items() if "__train_4k__" in name}
+    gain = flash_q["useful_ratio"] / llama["useful_ratio"]
+    print(f"[dryrun] the train step's split (torch {torch.__version__}): "
+          f"gemma-7b train_4k useful ratio {gemma['useful_ratio']:.4f} "
+          f"(limit >= {DRYRUN_USEFUL_MIN}); peak_estimate_gib "
+          + ", ".join(f"{k} {v}" for k, v in sorted(peaks.items()))
+          + f" (limit <= {DRYRUN_PEAK_MAX_GIB}); {LM_ARCH} useful ratio "
+          f"{llama['useful_ratio']:.4f}, with rules:flash_q "
+          f"{flash_q['useful_ratio']:.4f}: x{gain:.3f} (limit >= "
+          f"{DRYRUN_FLASH_Q_GAIN}); counts traced on meta, nothing measured "
+          f"on {card}")
+    bad = [k for k, v in peaks.items() if v > DRYRUN_PEAK_MAX_GIB]
+    if gemma["useful_ratio"] < DRYRUN_USEFUL_MIN:
+        bad.append("gemma-7b's useful ratio")
+    if gain < DRYRUN_FLASH_Q_GAIN:
+        bad.append("rules:flash_q's gain")
+    if bad:
+        raise AssertionError(f"the dry-run's train step is not split as the "
+                             f"rules say: {bad}")
+
+
+def quickstart(torch, card: str, none: dict, zero_counts, read_counts,
+               check_against_segment) -> float:
+    """Phase 23: ``examples/quickstart_torch.py`` on the card, through its
+    ``main``: ``--impl segment``, then ``--impl cuda`` with the counts set
+    to 0 just before (K1 launches 3 modes x 10 iterations and nothing
+    else) from the same seed, so the same tensor and initial factors; the
+    fits within 1e-5, lambda and the factors within a relative 3e-2.
+    Returns the phase's seconds."""
+    import runpy
+
+    start = time.perf_counter()
+    path = Path(__file__).resolve().parent / "examples" / "quickstart_torch.py"
+    example = runpy.run_path(str(path))["main"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        plain = example(["--impl", "segment"])
+    zero_counts()
+    t0 = time.perf_counter()
+    out = example(["--impl", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != dict(none, mttkrp=3 * QUICKSTART_ITERS):
+        raise AssertionError(f"quickstart_torch.py --impl cuda launched "
+                             f"{counts}")
+    check_against_segment(out["decomp"], "examples/quickstart_torch.py "
+                          "--impl cuda", want=plain["decomp"],
+                          tag="quickstart",
+                          against="--impl segment")
+    print(f"[quickstart] examples/quickstart_torch.py --impl cuda: "
+          f"{out['tensor'].nnz} non-zeros, rank 16, {QUICKSTART_ITERS} "
+          f"iterations in {wall:.4f} s, launches {counts} on {card}")
+    return time.perf_counter() - start
+
+
 def dry_run(card: str, step_s: float, iteration: dict) -> float:
     """Phase 22: the dry-run (see the module docstring): each of
     ``DRYRUN_CELLS`` in a subprocess of its own (its fake group), and the
@@ -2218,12 +2314,17 @@ def dry_run(card: str, step_s: float, iteration: dict) -> float:
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     with tempfile.TemporaryDirectory(prefix="dryrun-") as out:
         procs = {}
-        for arch, shape, mesh in DRYRUN_CELLS:
+        for arch, shape, mesh, rules in DRYRUN_CELLS:
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--arch", arch, "--mesh", mesh, "--out", out]
             if shape:
                 cmd += ["--shape", shape]
-            procs[f"{arch} {shape or 'iteration'} {mesh}"] = cmd
+            for k, v in (rules or {}).items():
+                cmd += ["--override", f"rules:{k}={json.dumps(v)}"]
+            if rules:
+                cmd += ["--tag", "_".join(rules)]
+            procs[f"{arch} {shape or 'iteration'} {mesh} "
+                  f"{json.dumps(rules or {})}"] = cmd
         procs["one-rank grids"] = [
             sys.executable, "-c", DRYRUN_ONE_RANK, out, LM_ARCH,
             str(MESH_TRAIN_SEQ), ",".join(iteration["impls"])]
@@ -2260,6 +2361,7 @@ def dry_run(card: str, step_s: float, iteration: dict) -> float:
                   f"50 GB/s; nothing measured on {card})")
     if len(arts) != len(DRYRUN_CELLS) + 1:
         raise AssertionError(f"the dry-run wrote {sorted(arts)}")
+    split_checks(arts, card)
 
     lm = arts[f"{LM_ARCH}__train_1x{MESH_TRAIN_SEQ}__single__one_rank"]
     cp = json.loads(re.search(r"^CPALS (.*)$", outs["one-rank grids"],
@@ -3128,7 +3230,11 @@ def main() -> int:
     # --- 22. the dry-run on fake 256/512-rank groups, and its bounds ------
     dryrun_s = dry_run(card, mesh_step_s, dist_iteration)
 
-    # --- 23. results --------------------------------------------------------
+    # --- 23. the quickstart example through the hand-written MTTKRP ------
+    quick_s = quickstart(torch, card, none, zero_counts, read_counts,
+                         check_against_segment)
+
+    # --- 24. results --------------------------------------------------------
     kernels = [
         kernel_entry("mttkrp", "segmented.cuh",
                      "src/repro/kernels/mttkrp_pallas.py:49",
@@ -3171,6 +3277,7 @@ def main() -> int:
     print(f"[mesh] the mesh phase ran {mesh_s:.1f} s on {card}")
     print(f"[dryrun] the dry-run phase ran {dryrun_s:.1f} s on {card}'s "
           f"host")
+    print(f"[quickstart] the quickstart phase ran {quick_s:.1f} s on {card}")
     print(f"[total] chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

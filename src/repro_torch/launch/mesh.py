@@ -215,11 +215,20 @@ def place_model(model, sharding_fn: Callable):
     return model
 
 
+def _whole_ones(spec: tuple, shape) -> tuple:
+    """``spec`` with each dim of size one unsplit (a batch of one): only
+    mesh axes of size one divide it, so every rank holds it whole either
+    way, and DTensor refuses to view a split dim away, as an einsum or a
+    matmul views its operands."""
+    return tuple(None if n == 1 else e for e, n in zip(spec, shape))
+
+
 def install(mesh: Mesh, rules: dict) -> None:
     """Set the activation hook of ``mesh`` and ``rules``, and the mesh
     (expert-parallel MoE reads it); ``uninstall`` clears both.  The hook
-    redistributes a DTensor to ``spec_for(axes, x.shape)``'s placements,
-    and makes a plain tensor every rank holds one with them."""
+    redistributes a DTensor to ``spec_for(axes, x.shape)``'s placements
+    (a dim of size one left whole), and makes a plain tensor every rank
+    holds one with them."""
     from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.models.layers import set_sharding_hook
@@ -230,13 +239,21 @@ def install(mesh: Mesh, rules: dict) -> None:
     replicated = [Replicate()] * len(mesh.axis_names)
 
     def hook(x: torch.Tensor, axes: tuple) -> torch.Tensor:
-        pl = placements(mesh, spec_for(axes, tuple(x.shape), mesh, rules))
+        pl = placements(mesh, _whole_ones(
+            spec_for(axes, tuple(x.shape), mesh, rules), x.shape))
         if not isinstance(x, DTensor):
             x = DTensor.from_local(x, dm, replicated, run_check=False)
         if tuple(x.placements) == pl:
             return x
         return x.redistribute(dm, pl)
 
+    def spec(axes: tuple, shape: tuple) -> tuple:
+        """The mesh axes of each dim (None where whole), as the hook
+        places a tensor of ``shape``."""
+        sp = _whole_ones(spec_for(axes, shape, mesh, rules), shape)
+        return tuple(sp) + (None,) * (len(shape) - len(sp))
+
+    hook.spec = spec
     set_sharding_hook(hook, mesh)
 
 

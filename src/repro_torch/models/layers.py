@@ -61,6 +61,30 @@ def shard_act(x: torch.Tensor, axes: tuple) -> torch.Tensor:
     return _SHARDING_HOOK(x, axes)
 
 
+def pinned(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """``shard_act(x, axes)`` whose gradient is placed the same way: one
+    that arrives as a partial sum (the input gradient of a product split
+    over the model axis) is reduced here, as Megatron reduces it at a
+    block's input, rather than wherever DTensor's rules would take it.
+    Without grad mode (decode) it is ``shard_act(x, axes)``: the pair
+    below only places the gradient."""
+    x = shard_act(x, axes)
+    if not is_placed(x) or not torch.is_grad_enabled():
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False)
+
+
+def _splits(axes: tuple, shape: tuple, dim: int) -> bool:
+    """Whether the installed rules split dim ``dim`` of a tensor with
+    logical ``axes`` and ``shape`` (asked of the hook, without building
+    the tensor)."""
+    spec = getattr(_SHARDING_HOOK, "spec", None)
+    return spec is not None and spec(axes, shape)[dim] is not None
+
+
 def is_placed(x) -> bool:
     """Whether ``x`` is a DTensor under an installed hook."""
     if _SHARDING_HOOK is None:
@@ -326,6 +350,17 @@ FLASH_QB = 1024
 FLASH_KB = 1024
 
 
+# the flash path's q blocks (B, nq, qb, H, hd): the reference's constraint,
+# whose 'flash_q' rule splits the blocks when set (context parallelism)
+FLASH_Q_AXES = ("act_batch", "flash_q", None, "heads", None)
+
+
+def _flash_qb(s: int, qb: int = FLASH_QB) -> int:
+    """The q block: enough of them that they can shard over the model axis
+    when the head count cannot (context-parallel attention)."""
+    return min(qb, max(128, s // 16))
+
+
 def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, mask_kind: str, *, qb: int = FLASH_QB,
                      kb: int = FLASH_KB,
@@ -335,32 +370,97 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     ``block_skip``: skip KV blocks that are fully masked (strictly-future
     causal blocks / outside the local window) for the q blocks they are
     dead to; the q blocks a KV block is live for form one run, so the step
-    runs on that slice only and the others keep their carry."""
+    runs on that slice only and the others keep their carry.
+
+    Where the rules split the q blocks (``flash_q``), each rank runs the
+    loop on its own q blocks against the whole K/V (:func:`_q_parallel`);
+    else a placed ``q`` (the attention layer's) runs it on each rank's
+    batch rows and heads (:func:`_attend`)."""
+    from torch.distributed.tensor import DTensor, Shard
+
     b, s, h, hd = q.shape
-    t, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    qb = min(qb, max(128, s // 16))
-    kb = min(kb, t)
-    nq, nk = s // qb, t // kb
+    qb = _flash_qb(s, qb)
+    kb = min(kb, k.shape[1])
+    blocks = (b, s // qb, qb, h, hd)
+    if isinstance(q, DTensor) and not _splits(FLASH_Q_AXES, blocks, 1):
+        return _attend(functools.partial(
+            _flash_core, cfg, mask_kind=mask_kind, qb=qb, kb=kb,
+            block_skip=block_skip), q, k, v)
+    qr = shard_act(q.reshape(blocks), FLASH_Q_AXES)
+    if isinstance(qr, DTensor) and Shard(1) in qr.placements:
+        out = _q_parallel(cfg, qr, k, v, mask_kind, kb=kb,
+                          block_skip=block_skip)
+    else:
+        out = _flash_blocks(cfg, qr, k, v, mask_kind, kb=kb,
+                            block_skip=block_skip)
+    out = shard_act(out, FLASH_Q_AXES)
+    return out.reshape(b, s, h, hd)
+
+
+def _flash_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, *, mask_kind: str, qb: int, kb: int,
+                block_skip: bool) -> torch.Tensor:
+    """:func:`_flash_blocks` on plain (B,S,H,hd) tensors: one rank's block
+    under :func:`_attend`."""
+    b, s, h, hd = q.shape
+    out = _flash_blocks(cfg, q.reshape(b, s // qb, qb, h, hd), k, v,
+                        mask_kind, kb=kb, block_skip=block_skip)
+    return out.reshape(b, s, h, hd)
+
+
+def _q_parallel(cfg: ModelConfig, qr, k, v, mask_kind: str, *, kb: int,
+                block_skip: bool):
+    """:func:`_flash_blocks` on each rank's q blocks (``qr``'s dim 1 split
+    over the ``flash_q`` axes, its batch as placed, the heads whole)
+    against its batch rows of the whole K/V: the reference's
+    context-parallel attention.  Each rank's K/V gradient is a part of the
+    whole one, so it is a partial sum over those axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = qr.device_mesh
+    cp = [i for i, p in enumerate(qr.placements) if p == Shard(1)]
+    pl = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in qr.placements]
+    kv_pl = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    kv_grad = [Partial() if i in cp else p for i, p in enumerate(kv_pl)]
+
+    def whole(t):
+        return replicated_like(t, qr).redistribute(dm, kv_pl).to_local(
+            grad_placements=kv_grad)
+
+    ql, kl, vl = qr.redistribute(dm, pl).to_local(), whole(k), whole(v)
+    with _unhooked():
+        out = _flash_blocks(cfg, ql, kl, vl, mask_kind, kb=kb,
+                            block_skip=block_skip,
+                            q0=_split_offset(dm, cp, ql.shape[1]))
+    return DTensor.from_local(out, dm, pl, run_check=False)
+
+
+def _flash_blocks(cfg: ModelConfig, qr: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, mask_kind: str, *, kb: int,
+                  block_skip: bool, q0: int = 0) -> torch.Tensor:
+    """The flash loop over KV blocks for the q blocks ``qr`` (B, nq, qb,
+    H, hd), the first of them block ``q0`` of the sequence: (B, nq, qb, H,
+    hd) in q's dtype."""
+    b, nq, qb, h, hd = qr.shape
+    t = k.shape[1]
+    g = h // k.shape[2]
+    nk = t // kb
     scale = hd ** -0.5
-    # enough q blocks that they can shard over the model axis when the head
-    # count cannot (context-parallel attention: rules override flash_q)
-    qr = shard_act(q.reshape(b, nq, qb, h, hd),
-                   ("act_batch", "flash_q", None, "heads", None))
-    qpos = (torch.arange(nq, device=q.device)[:, None] * qb
-            + torch.arange(qb, device=q.device)[None, :])  # (nq, qb)
+    qpos = ((q0 + torch.arange(nq, device=qr.device))[:, None] * qb
+            + torch.arange(qb, device=qr.device)[None, :])  # (nq, qb)
 
     m = torch.full((b, nq, h, qb), -float("inf"), dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, nq, h, qb), dtype=torch.float32, device=q.device)
+                   device=qr.device)
+    l = torch.zeros((b, nq, h, qb), dtype=torch.float32, device=qr.device)
     acc = torch.zeros((b, nq, h, qb, hd), dtype=torch.float32,
-                      device=q.device)
+                      device=qr.device)
     m, l, acc = (replicated_like(c, qr) for c in (m, l, acc))
     for ki in range(nk):
         lo, hi = 0, nq
         if block_skip and mask_kind in ("causal", "local"):
             live = [qi for qi in range(nq)
-                    if not _dead_block(cfg, mask_kind, qi, ki, qb, kb)]
+                    if not _dead_block(cfg, mask_kind, q0 + qi, ki, qb, kb)]
             if not live:
                 continue
             lo, hi = live[0], live[-1] + 1
@@ -371,7 +471,7 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         sc = torch.einsum("bnqhd,bkhd->bnhqk", qr[:, lo:hi],
                           kblk).float() * scale
         if mask_kind != "bidir":
-            kpos = ki * kb + torch.arange(kb, device=q.device)
+            kpos = ki * kb + torch.arange(kb, device=qr.device)
             qp = qpos[lo:hi, :, None]
             msk = kpos[None, None, :] <= qp
             if mask_kind == "local":
@@ -379,7 +479,11 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             sc = torch.where(replicated_like(msk[None, :, None], sc), sc,
                              NEG_INF)
         m_old = m[:, lo:hi]
-        m_new = torch.maximum(m_old, sc.amax(dim=-1))
+        # the output does not depend on the running max (it cancels
+        # between acc and l), so its gradient is zero: the backward pass
+        # neither saves the scores for it nor routes a rounding error
+        # through it
+        m_new = torch.maximum(m_old, sc.detach().amax(dim=-1))
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m_old - m_new)
         l_new = l[:, lo:hi] * corr + p.sum(dim=-1)
@@ -392,9 +496,29 @@ def _flash_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         acc = _splice(acc, acc_new, lo, hi)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     # (B, nq, H, qb, hd) -> (B, nq, qb, H, hd), cast inside the block
-    out = shard_act(out.permute(0, 1, 3, 2, 4).to(q.dtype),
-                    ("act_batch", "flash_q", None, "heads", None))
-    return out.reshape(b, s, h, hd)
+    return out.permute(0, 1, 3, 2, 4).to(qr.dtype)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", out, wo)``; where ``out``'s sequence is
+    split (the q-parallel flash path), each rank takes its own rows
+    against the whole ``wo``, and the rows stay split, as GSPMD keeps them
+    (some torch releases refuse to flatten the split batch and sequence
+    dims into the product's one).  Each rank's ``wo`` gradient is then a
+    partial sum over the split axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(out, DTensor) or Shard(1) not in out.placements:
+        return torch.einsum("bshk,hkd->bsd", out, wo)
+    dm = out.device_mesh
+    pl = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in out.placements]
+    wl = replicated_like(wo, out).redistribute(
+        dm, [Replicate()] * dm.ndim).to_local(grad_placements=[
+            Replicate() if p == Replicate() else Partial() for p in pl])
+    y = torch.einsum("bshk,hkd->bsd", out.redistribute(dm, pl).to_local(),
+                     wl)
+    return DTensor.from_local(y, dm, pl, run_check=False)
 
 
 def _repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
@@ -503,14 +627,13 @@ def attention(
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     q, k = apply_rope(cfg, q, k, positions)
     if s >= FLASH_MIN_SEQ and s % FLASH_QB == 0:
-        out = _attend(functools.partial(
-            _flash_attention, cfg, mask_kind=mask_kind,
-            block_skip=cfg.flash_block_skip), q, k, v)
+        out = _flash_attention(cfg, q, k, v, mask_kind,
+                               block_skip=cfg.flash_block_skip)
     else:
         mask = _train_mask(mask_kind, s, cfg.window,
                            x.device)[None, None, None, :, :]
         out = _attend(functools.partial(_sdpa, cfg), q, k, v, mask)
-    y = torch.einsum("bshk,hkd->bsd", out, gathered(p["wo"], 2))
+    y = _out_proj(out, gathered(p["wo"], 2))
 
     new_cache = None
     if cache is not None:
@@ -628,6 +751,52 @@ class _SumOverRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over the last dim of logits each rank holds a block of
+    (the vocab split over ``groups``): the local max all-reduced with MAX
+    (a constant to autograd: the result does not depend on it), the local
+    sum of ``exp(l - m)`` all-reduced with SUM.  The backward is
+    ``exp(l - lse) * grad`` on the rank's own block, so no rank holds more
+    than its block of the logits either way."""
+
+    @staticmethod
+    def forward(ctx, lf, groups):
+        import torch.distributed as dist
+
+        m = lf.amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        se = torch.exp(lf - m[..., None]).sum(dim=-1)
+        for g in groups:
+            dist.all_reduce(se, group=g)
+        lse = torch.log(se) + m
+        ctx.save_for_backward(lf, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        lf, lse = ctx.saved_tensors
+        return torch.exp(lf - lse[..., None]) * grad[..., None], None
+
+
+def vocab_logsumexp(logits):
+    """``torch.logsumexp(logits, -1)`` (B, S) of placed (B, S, V) float
+    logits, each rank reducing its own vocab block (Megatron's
+    vocab-parallel cross-entropy): the rows placed as the logits' batch.
+    A rank that holds whole rows (no vocab axis larger than one) takes
+    ``torch.logsumexp`` of them, as the unsharded model does."""
+    from torch.distributed.tensor import Shard
+
+    dm = logits.device_mesh
+    vdims = [i for i, p in enumerate(logits.placements)
+             if p == Shard(2) and dm.size(i) > 1]
+    local = logits.to_local()
+    lse = (_VocabLogSumExp.apply(local, [dm.get_group(i) for i in vdims])
+           if vdims else torch.logsumexp(local, dim=-1))
+    batch = [i for i, p in enumerate(logits.placements) if p == Shard(0)]
+    return _placed_rows(lse, dm, batch)
 
 
 def _split_offset(dm, dims: list, block: int) -> int:

@@ -82,7 +82,7 @@ def apply_block(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
             p["attn"], cfg, L.apply_norm(p["n1"], cfg, x),
             mask_kind=ctx["mask_kind"], positions=ctx.get("positions"),
             cache=cache.get("self") if cache else None, pos=ctx.get("pos"))
-        x = x + h
+        x = _residual(x, h)
         new_cache = {"self": acache} if cache is not None else None
         if cfg.encdec and "xattn" in p:
             h, xcache = L.attention(
@@ -90,7 +90,7 @@ def apply_block(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
                 mask_kind="bidir", memory=ctx.get("memory"),
                 cache=cache.get("cross") if cache else None,
                 pos=ctx.get("pos"))
-            x = x + h
+            x = _residual(x, h)
             if new_cache is not None:
                 new_cache["cross"] = xcache
         h2 = L.apply_norm(p["n2"], cfg, x)
@@ -98,21 +98,36 @@ def apply_block(kind: str, p: dict, cfg: ModelConfig, x: torch.Tensor,
             h2, metrics = MOE.moe_ffn(p["moe"], cfg, h2)
         else:
             h2 = L.mlp(p["mlp"], cfg, h2)
-        return x + h2, new_cache, metrics
+        return _residual(x, h2), new_cache, metrics
     if kind == "rec":
         h, rcache = RG.rglru_block(p["rec"], cfg,
                                    L.apply_norm(p["n1"], cfg, x), cache)
-        x = x + h
-        return (x + L.mlp(p["mlp"], cfg, L.apply_norm(p["n2"], cfg, x)),
+        x = _residual(x, h)
+        return (_residual(x, L.mlp(p["mlp"], cfg,
+                                   L.apply_norm(p["n2"], cfg, x))),
                 rcache, metrics)
     if kind == "rwkv":
         h, c1 = RW.time_mix(p["rwkv"], cfg, L.apply_norm(p["n1"], cfg, x),
                             cache, use_chunked=ctx.get("chunked", False))
-        x = x + h
+        x = _residual(x, h)
         h2, c2 = RW.channel_mix(p["rwkv"], cfg, L.apply_norm(p["n2"], cfg, x),
                                 c1)
-        return x + h2, c2, metrics
+        return _residual(x, h2), c2, metrics
     raise ValueError(kind)
+
+
+# the residual stream's axes, as the embedding places the hidden
+HIDDEN = ("act_batch", None, None)
+
+
+def _residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h``, ``h`` placed as the embedding places the hidden (its batch
+    on the data axes, the rest whole on every rank): a block's output
+    products leave ``h`` a partial sum over the model axis, and it is
+    reduced here, before the next norm, as GSPMD reduces it; the next MLP
+    then runs its own block of ``mlp`` on each model rank.  The sum's
+    gradient is reduced the same way (``layers.pinned``)."""
+    return L.pinned(x + L.shard_act(h, HIDDEN), HIDDEN)
 
 
 def _block_mask_kind(cfg: ModelConfig, kind: str, *,
@@ -466,11 +481,12 @@ def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
     """(sum of the float32 cross-entropy over the labels >= 0, their
     count).  A masked label gathers class 0; its term is multiplied by 0."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
     labels = L.shard_act(labels.long(), ("act_batch", None))
-    if L.is_placed(lf):  # each rank reads its own vocab block
+    if L.is_placed(lf):  # each rank reduces and reads its own vocab block
+        lse = L.vocab_logsumexp(lf)
         gold = L.take_along_vocab(lf, labels.clamp(min=0))
     else:
+        lse = torch.logsumexp(lf, dim=-1)
         gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
     valid = (labels >= 0).float()
     return ((lse - gold) * valid).sum(), valid.sum()

@@ -2,13 +2,14 @@
 reference's: ``cpals-yelp``'s distributed iteration on a (2, 2, 2) grid,
 with and without ``shard_c``, and on both production grids, its ``info``
 and its collectives' result and wire bytes; a narrowed ``smoke_of`` LM
-cell on a (4, 2) grid; llama3.2-3b ``train_4k`` and rwkv6-3b
-``decode_32k`` at full width on ``meta``;
+cell on a (4, 2) grid; llama3.2-3b ``train_4k`` (also with
+``rules:flash_q``), gemma-7b ``train_4k`` and rwkv6-3b ``decode_32k`` at
+full width on ``meta``; llama's batch-of-one step on a one-rank grid;
 each collective route counted once; the capability gate; the front
 door's ``dryrun`` writing an artifact the report reads.
 
 The fake process group is process-global, so the port's side runs in one
-subprocess (which re-creates its group at 8, 256 and 512 ranks), the
+subprocess (which re-creates its group at 8, 256, 512 and 1 ranks), the
 reference's in another (XLA host devices), and the front door in a third;
 the three run at once."""
 import json
@@ -112,6 +113,11 @@ art = D.run_cell("llama3.2-3b", "train_4k", multi_pod=False,
                  out_dir=out_dir, mesh=mesh)
 out["llama"] = {"art": art, "arguments": arguments(
     full, SHAPES["train_4k"], mesh)}
+out["llama_flash_q"] = D.run_cell("llama3.2-3b", "train_4k", multi_pod=False,
+                                  overrides={"rules:flash_q": "model"},
+                                  out_dir=out_dir, tag="flash_q", mesh=mesh)
+out["gemma"] = D.run_cell("gemma-7b", "train_4k", multi_pod=False,
+                          out_dir=out_dir, mesh=mesh)
 # RWKV-6's heads (40) split by no production axis: the groups gathered
 # before they are unflattened, the recurrence on each rank's block
 out["rwkv"] = D.run_cell("rwkv6-3b", "decode_32k", multi_pod=False,
@@ -121,6 +127,15 @@ dist.destroy_process_group()
 D.init_fake_group(512)
 out["cpals"]["multi"] = cpals(D.make_production_mesh(multi_pod=True,
                                                      device="cuda"))
+
+# one rank, a batch of one: each batch dim a split over an axis of size one
+dist.destroy_process_group()
+D.init_fake_group(1)
+one = make_mesh((1, 1), ("data", "model"), device="cuda")
+out["one_rank"] = D.run_cell("llama3.2-3b", "train_1x4096", multi_pod=False,
+                             shape=ShapeConfig("train_1x4096", 4096, 1,
+                                               "train"),
+                             out_dir=out_dir, tag="one_rank", mesh=one)
 out["modules"] = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m == "repro" or m.startswith("repro."))
@@ -266,6 +281,51 @@ def test_llama_train_4k_at_full_width(runs):
     assert art["memory"]["argument_bytes"] == llama["arguments"]
     assert art["memory"]["alias_bytes"] > 0
     assert art["probe"]["reps"] == 28
+
+
+# the production train step split as the reference's rules split it: the
+# residual stream reduced at each block's output (the MLP on its 1/16 of
+# 'mlp'), the cross-entropy over each rank's vocab block
+USEFUL_MIN, PEAK_MAX_GIB, FLASH_Q_GAIN = 0.4, 80.0, 1.25
+
+
+def test_gemma_train_4k_splits_as_the_rules_say(runs):
+    """gemma-7b's 16 heads divide the model axis: every layer splits 16
+    ways, so the useful ratio is at least 0.4 and a rank's peak fits the
+    card's 80 GiB."""
+    art = runs["port"]["gemma"]
+    _check_keys(art)
+    assert art["roofline"]["useful_ratio"] >= USEFUL_MIN, art["roofline"]
+    assert art["memory"]["peak_estimate_gib"] <= PEAK_MAX_GIB, art["memory"]
+
+
+def test_llama_train_4k_fits_and_flash_q_splits_its_attention(runs):
+    """llama3.2-3b's 24 heads do not divide the model axis: its attention
+    runs whole on each model rank, yet a rank's peak fits 80 GiB; with
+    ``rules:flash_q`` each rank runs its own q blocks, and the useful ratio
+    rises at least 1.25x."""
+    base = runs["port"]["llama"]["art"]
+    fq = runs["port"]["llama_flash_q"]
+    _check_keys(fq)
+    assert fq["overrides"] == {"rules:flash_q": "model"}
+    for art in (base, fq):
+        assert art["memory"]["peak_estimate_gib"] <= PEAK_MAX_GIB, \
+            art["memory"]
+    assert (fq["roofline"]["useful_ratio"]
+            >= FLASH_Q_GAIN * base["roofline"]["useful_ratio"])
+
+
+def test_one_rank_batch_of_one_step_traces(runs):
+    """The one-rank grid at a batch of one (every split over an axis of
+    size one): llama's whole train step traces, and on one rank it moves
+    nothing between ranks."""
+    art = runs["port"]["one_rank"]
+    _check_keys(art)
+    assert art["cell"] == "llama3.2-3b__train_1x4096__single__one_rank"
+    assert art["n_chips"] == 1
+    r = art["roofline"]
+    assert r["flops"] > 0 and r["wire_bytes"] == 0
+    assert art["split"]["bf16_flops"] >= r["model_flops"]
 
 
 def test_rwkv_decode_on_the_production_grid(runs):

@@ -11,7 +11,11 @@ after the other:
   ``place_model``: ``loss`` and every gradient in float32, one AdamW step
   on placed state, then prefill and two decode steps on a cache placed by
   its axes; ``_flash_attention`` called directly (``qb = kb = 16`` at s =
-  48) with the hook on and off; ``smoke_of(kimi-k2-1t-a32b)`` (FSDP, one
+  48) with the hook on and off, and on 3-head inputs with
+  ``rules:flash_q`` (the q blocks split over 'model'); a 3-head llama's
+  loss and gradients through that path (its threshold lowered to 1024
+  positions in the ranks); ``chunked_loss``'s loss and gradients (the
+  vocab-parallel cross-entropy); ``smoke_of(kimi-k2-1t-a32b)`` (FSDP, one
   shared expert) at capacity factor 8.0: ``moe_ffn_ep`` forward and
   gradients; a checkpoint of the placed parameters; ``Model.abstract``
   with a sharding function;
@@ -39,6 +43,15 @@ MOE_ARCH = "kimi-k2-1t-a32b"
 BATCH, SEQ, DECODE = 4, 16, 2
 FLASH = dict(b=2, s=48, blk=16)
 FLASH_CASES = [("causal", False), ("causal", True), ("local", True)]
+# rules:flash_q: 3 heads (1 KV head), which the model axis does not divide,
+# and 4 q blocks, which it does: each model rank runs its 2 q blocks
+FLASH_Q = dict(b=2, s=64, h=3, kv=1)
+FLASH_Q_CASES = [("causal", False), ("local", True)]
+# the model through the flash path with rules:flash_q: 3 heads, 1 KV head,
+# the sequence at the shortest the path takes once its threshold is
+# lowered (qb = 128: 8 q blocks, 1 KV block)
+FQ_SEQ, FQ_MIN_SEQ = 1024, 1024
+CHUNK = 8  # chunked_loss: two chunks of the 16 positions
 FLASH_WINDOW = 20
 MOE_CF = 8.0
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -151,6 +164,101 @@ def _flash(cfg, mesh, rules, inp):
                     "dtensor": type(o).__name__ == "DTensor"}
             finally:
                 M.uninstall()
+    return out
+
+
+def _flash_q(cfg, mesh, inp):
+    """``_flash_attention`` with ``rules_for(cfg, flash_q="model")``, hook
+    off and on, on 3-head inputs: the on side splits its q blocks over
+    'model' and runs each rank's against the whole K/V."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(cfg, window=FLASH_WINDOW)
+    rules = M.rules_for(cfg, overrides={"flash_q": "model"})
+    out = {}
+    for kind, skip in FLASH_Q_CASES:
+        for hook in (False, True):
+            if hook:
+                M.install(mesh, rules)
+            try:
+                q, k, v = (torch.from_numpy(inp[f"fq_{n}"]).requires_grad_()
+                           for n in ("q", "k", "v"))
+                o = L._flash_attention(cfg, q, k, v, kind, qb=FLASH["blk"],
+                                       kb=FLASH["blk"], block_skip=skip)
+                w = L.replicated_like(torch.from_numpy(inp["fq_w"]), o)
+                (o * w).sum().backward()
+                out[(kind, skip, hook)] = {
+                    "out": _np(o), "dq": _np(q.grad), "dk": _np(k.grad),
+                    "dv": _np(v.grad),
+                    "placements": (tuple(o.placements) if hook else None)}
+            finally:
+                M.uninstall()
+    return out
+
+
+def _flash_q_model(inp, mesh):
+    """A 3-head llama through ``Model.loss`` at FQ_SEQ positions, the flash
+    path's threshold lowered to reach it: unsharded, then placed with
+    ``rules:flash_q`` (``attention`` hands the core its q blocks split, the
+    q-parallel path's calls counted): loss and gradients."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(configs.smoke_of(configs.get(ARCH)),
+                              num_heads=3, num_kv_heads=1)
+    batch = {"tokens": torch.from_numpy(inp["fq_tokens"]),
+             "labels": torch.from_numpy(inp["fq_labels"])}
+    rules = M.rules_for(cfg, overrides={"flash_q": "model"})
+    calls = []
+    saved = L.FLASH_MIN_SEQ, L._q_parallel
+
+    def counted(*a, **k):
+        calls.append(1)
+        return saved[1](*a, **k)
+
+    L.FLASH_MIN_SEQ, L._q_parallel = FQ_MIN_SEQ, counted
+    try:
+        out = {"plain": _loss_and_grads(_model(cfg, inp["fq_params"]),
+                                        batch)}
+        out["plain_calls"] = len(calls)
+        model = M.place_model(_model(cfg, inp["fq_params"]),
+                              M.sharding_fn(mesh, rules))
+        M.install(mesh, rules)
+        try:
+            out["mesh"] = _loss_and_grads(model, batch)
+        finally:
+            M.uninstall()
+        out["mesh_calls"] = len(calls) - out["plain_calls"]
+    finally:
+        L.FLASH_MIN_SEQ, L._q_parallel = saved
+    return out
+
+
+def _chunked(cfg, mesh, inp):
+    """``Model.loss`` with ``chunked_loss``: the vocab-parallel
+    cross-entropy a chunk at a time, unsharded and placed."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as M
+
+    cfg = dataclasses.replace(cfg, chunked_loss=CHUNK)
+    batch = {"tokens": torch.from_numpy(inp["tokens"]),
+             "labels": torch.from_numpy(inp["labels"])}
+    rules = M.rules_for(cfg)
+    out = {"plain": _loss_and_grads(_model(cfg, inp["params"]), batch)}
+    model = M.place_model(_model(cfg, inp["params"]),
+                          M.sharding_fn(mesh, rules))
+    M.install(mesh, rules)
+    try:
+        out["mesh"] = _loss_and_grads(model, batch)
+    finally:
+        M.uninstall()
     return out
 
 
@@ -282,6 +390,9 @@ def _grids(rank, inp, ckpt_root):
          _flat(Model(cfg).param_specs()).items())}
 
     res["flash"] = _flash(cfg, mesh, rules, inp)
+    res["flash_q"] = _flash_q(cfg, mesh, inp)
+    res["flash_q_model"] = _flash_q_model(inp, mesh)
+    res["chunked"] = _chunked(cfg, mesh, inp)
     res["moe"] = _moe(mesh, lambda c: M.rules_for(c), inp)
 
     # grid B: (pod=2, data=1, model=2), the pod-aware rules
@@ -322,6 +433,8 @@ def _peak_rss_kb() -> int:
 
 def _inputs():
     """Every input, drawn with numpy from seeds."""
+    import dataclasses
+
     from test_torch_helpers import np_params
 
     from repro_torch import configs
@@ -335,7 +448,23 @@ def _inputs():
     f = FLASH
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     mcfg = configs.smoke_of(configs.get(MOE_ARCH))
+    fq = FLASH_Q
+    fq_cfg = dataclasses.replace(cfg, num_heads=3, num_kv_heads=1)
+    fq_labels = rng.integers(0, cfg.vocab, (fq["b"], FQ_SEQ), dtype=np.int32)
+    fq_labels[1, :5] = -1
     return {
+        "fq_q": rng.standard_normal((fq["b"], fq["s"], fq["h"], hd),
+                                    np.float32),
+        "fq_k": rng.standard_normal((fq["b"], fq["s"], fq["kv"], hd),
+                                    np.float32),
+        "fq_v": rng.standard_normal((fq["b"], fq["s"], fq["kv"], hd),
+                                    np.float32),
+        "fq_w": rng.standard_normal((fq["b"], fq["s"], fq["h"], hd),
+                                    np.float32),
+        "fq_params": np_params(Model(fq_cfg).param_specs(), 5),
+        "fq_tokens": rng.integers(0, cfg.vocab, (fq["b"], FQ_SEQ),
+                                  dtype=np.int32),
+        "fq_labels": fq_labels,
         "params": np_params(Model(cfg).param_specs(), 0),
         "tokens": rng.integers(0, cfg.vocab, (BATCH, SEQ), dtype=np.int32),
         "labels": labels,
@@ -462,12 +591,20 @@ def test_prefill_and_decode_sharded_equal_unsharded(grid):
                                **TOL)
 
 
-@pytest.mark.parametrize("kind,skip", FLASH_CASES)
-def test_flash_attention_with_the_hook_equals_without(grid, kind, skip):
+@pytest.mark.parametrize("kind,skip,rule", [
+    *(pytest.param(k, s, None, id=f"{k}-{s}") for k, s in FLASH_CASES),
+    *(pytest.param(k, s, "flash_q", id=f"flash_q-{k}-{s}")
+      for k, s in FLASH_Q_CASES)])
+def test_flash_attention_with_the_hook_equals_without(grid, kind, skip,
+                                                      rule):
     """``_flash_attention`` called directly with small blocks: the hook
     on (q blocks, repeated KV blocks and the output constrained, so the
     loop runs on DTensors) against off, output and gradients 1e-4; off
-    against the reference's."""
+    against the reference's.  The ``flash_q`` cases: 3 heads, which the
+    model axis does not divide, and ``rules:flash_q``: each model rank
+    runs its own q blocks against the whole K/V (the K/V gradients partial
+    sums), the output placed as the reference's constraint names it (q
+    blocks on 'model')."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -476,18 +613,53 @@ def test_flash_attention_with_the_hook_equals_without(grid, kind, skip):
     from test_torch_helpers import lm_cfgs
 
     inp, (r0, *_) = grid
-    on = r0["flash"][(kind, skip, True)]
-    off = r0["flash"][(kind, skip, False)]
-    assert on["dtensor"] and not off["dtensor"]
+    if rule is None:
+        on = r0["flash"][(kind, skip, True)]
+        off = r0["flash"][(kind, skip, False)]
+        assert on["dtensor"] and not off["dtensor"]
+        names = ("q", "k", "v")
+    else:
+        from torch.distributed.tensor import Shard
+
+        on = r0["flash_q"][(kind, skip, True)]
+        off = r0["flash_q"][(kind, skip, False)]
+        # batch on 'data', the sequence (the q blocks) on 'model'
+        assert on["placements"] == (Shard(0), Shard(1))
+        names = ("fq_q", "fq_k", "fq_v")
     for key in ("out", "dq", "dk", "dv"):
         np.testing.assert_allclose(on[key], off[key], err_msg=key, **TOL)
     jcfg, _ = lm_cfgs(ARCH)
     jcfg = dataclasses.replace(jcfg, window=FLASH_WINDOW)
     want = JL._flash_attention(jcfg, *(jnp.asarray(inp[n])
-                                       for n in ("q", "k", "v")), kind,
+                                       for n in names), kind,
                                qb=FLASH["blk"], kb=FLASH["blk"],
                                block_skip=skip)
     np.testing.assert_allclose(off["out"], np.asarray(want), **TOL)
+
+
+def test_flash_q_model_loss_and_grads_sharded_equal_unsharded(grid):
+    """A 3-head llama through ``Model.loss`` on the flash path with
+    ``rules:flash_q``: ``attention`` hands the core its q blocks split,
+    and the loss and every gradient (the K/V projections' from partial
+    sums) equal the unsharded model's."""
+    _, (r0, *_) = grid
+    fq = r0["flash_q_model"]
+    assert fq["plain_calls"] == 0 and fq["mesh_calls"] >= 2  # each layer
+    np.testing.assert_allclose(fq["mesh"][0], fq["plain"][0], **LOSS_TOL)
+    _close_trees(fq["mesh"][1], fq["plain"][1], **TOL)
+
+
+def test_chunked_loss_and_grads_sharded_equal_unsharded(grid):
+    """``chunked_loss``: the vocab-parallel cross-entropy (each rank's
+    logsumexp and gold logit over its vocab block, a chunk at a time)
+    against the unsharded loss and gradients, and against the whole-logit
+    loss."""
+    _, (r0, *_) = grid
+    ch = r0["chunked"]
+    np.testing.assert_allclose(ch["mesh"][0], ch["plain"][0], **LOSS_TOL)
+    _close_trees(ch["mesh"][1], ch["plain"][1], **TOL)
+    np.testing.assert_allclose(ch["plain"][0], r0["plain"]["loss"],
+                               **LOSS_TOL)
 
 
 def test_ep_moe_matches_the_dense_dispatch(grid, reference):
