@@ -38,11 +38,13 @@ Phases; any failure raises and exits non-zero:
    mode's CSF (1e-4: the same function on another layout), timed beside
    its bound (12 B a stored entry, the gathered factors, the output) and
    its L2 gathers.  Then the off-sort kernel on every other mode of each
-   sort mode (sort mode 1 puts mode 0's field across the words), held to
-   the same plain version and K1 at the same limits, timed beside its
-   bound, its L2 gathers and its atomic bytes (runs of equal rows x width
-   x 4 B, each run ending where the row changes or a warp's range ends)
-   and their rate.
+   sort mode (sort mode 1 puts mode 0's field across the words): first the
+   one-time build of that mode's ordered stream (the workspace's entries
+   stably re-sorted by the mode's field, ``core.linearized.ordered_stream``)
+   timed and its bytes, then the kernel over it, held to the same plain
+   version and K1 at the same limits, timed beside its bound, its L2
+   gathers and its atomic bytes (the rows a warp range shares with its
+   neighbours, its first and last, x width x 4 B).
 5. The main path: ``repro_torch.methods.fit(t, 35, method="cp_als",
    impl="cuda", niters=20, timers=...)`` on yelp, with every launch count
    set to 0 just before and read just after: MTTKRP must launch 3 modes x
@@ -56,7 +58,8 @@ Phases; any failure raises and exits non-zero:
    the same state, the counts set to 0 just before: K3 launches 20 times
    (the sort mode, once an iteration) and the off-sort kernel 40 (modes 1
    and 2), K1 and SYRK none; held to ``segment`` as in phase 5.  Its
-   routine times print beside the CSF fit's.
+   routine times print beside the CSF fit's (its Sort includes the two
+   ordered streams).
 7. The measured planner: ``plan_decomposition(t, "auto", rank=35,
    calibrate=True, autotune=<temporary store>)`` prints each mode's
    measured ms per candidate and the winner; a second plan on the same
@@ -72,9 +75,9 @@ Phases; any failure raises and exits non-zero:
    against its plain version (float32 at 1e-4, bfloat16 at 5e-2), the
    linearized ones also against K1-TTMc on the same mode's CSF, timed
    beside their bounds and beside the factor rows each gathers from L2 and
-   their rate (the off-sort one also beside its atomic bytes and their
-   rate); then one thin SVD of mode 2's Y (75 000 x 256), the library call
-   the fit makes after each TTMc.
+   their rate (the off-sort one, over phase 4's ordered streams, also
+   beside its atomic bytes); then one thin SVD of mode 2's Y (75 000 x
+   256), the library call the fit makes after each TTMc.
 10. The Tucker path: ``fit(t, (16, 16, 16), method="tucker_hooi",
    impl="cuda", niters=8, timers=...)`` with every count set to 0 just
    before: K1-TTMc launches 3 x 8 = 24 times, nothing else.  Held to the
@@ -500,15 +503,16 @@ def gathered_bytes(ids, row_bytes) -> int:
     return 32 * sectors
 
 
-def atomic_runs(torch, rows, segment: int) -> int:
-    """Runs of equal rows the off-sort kernel adds to its output with
-    atomics in one call: a run ends where the row changes or where a warp's
-    range of ``segment`` stored entries ends.  ``rows``: the (pnnz,) target
-    rows the kernel decodes, padding included."""
-    new = torch.ones_like(rows, dtype=torch.bool)
-    new[1:] = rows[1:] != rows[:-1]
-    new[::segment] = True
-    return int(new.sum())
+def edge_atomic_rows(torch, rows, segment: int) -> int:
+    """Rows a row-segmented kernel adds to its output with atomics in one
+    call: each warp range of ``segment`` stored entries adds its first and
+    its last row (one, where they are the same row) and stores the others.
+    ``rows``: the (n,) non-decreasing rows of the stream the kernel
+    walks."""
+    first, last = rows[::segment], rows[segment - 1::segment]
+    if last.shape[0] < first.shape[0]:  # a short last range
+        last = torch.cat([last, rows[-1:]])
+    return int((first != last).sum()) + int(first.shape[0])
 
 
 def build_lines(log: str) -> list[tuple[str, int, int, int]]:
@@ -2480,6 +2484,7 @@ def main() -> int:
     from repro_torch.core.cpals import (ROUTINES_FUSED, CPALSState,
                                         _mode_epilogue)
     from repro_torch.core.gram import gram, kruskal_norm_sq
+    from repro_torch.core.linearized import decode_field, ordered_stream
     from repro_torch.kernels import (_build, linearized_cuda, mttkrp_cuda, ops,
                                      ref, syrk_cuda)
     from repro_torch.methods import fit, make_state
@@ -2614,22 +2619,45 @@ def main() -> int:
           + " ".join(f"{ms:.4f}" for ms in epilogue_ms))
 
     # --- 4. K3: MTTKRP on the linearized workspace ------------------------
+    def lin_stream(lin, mode: int):
+        """The (hi, lo, vals) a linearized call on ``mode`` walks: the
+        workspace on its sort mode, else the mode's ordered stream (built at
+        its first call and cached)."""
+        if mode == lin.sort_mode:
+            return lin.hi, lin.lo, lin.vals
+        return linearized_cuda.off_sort_stream(lin, mode)
+
     def lin_mttkrp_bound(lin, mode: int):
         """Bytes, operations and bound of one linearized MTTKRP call on
-        ``mode``: 12 B a stored entry, the other factors, the output."""
-        nbytes = (lin.padded_nnz * 12
+        ``mode``: 12 B a stored entry of the stream it walks, the other
+        factors, the output."""
+        n = lin_stream(lin, mode)[2].shape[0]
+        nbytes = (n * 12
                   + sum(t.dims[m] * RANK * 4 for m in range(t.order)
                         if m != mode)
                   + t.dims[mode] * RANK * 4)
-        ops_count = lin.padded_nnz * RANK * t.order
+        ops_count = n * RANK * t.order
         return nbytes, ops_count, *bound(nbytes, ops_count)
+
+    def lin_field(lin, mode: int, m: int):
+        """Mode ``m``'s coordinates over the stream a call on ``mode``
+        walks."""
+        hi, lo, _ = lin_stream(lin, mode)
+        return decode_field(hi, lo, lin.offsets[m], lin.widths[m])
 
     def lin_gathers(lin, mode: int, ranks) -> int:
         """L2 sector bytes of the factor rows a linearized call on ``mode``
         gathers, the factors of ``ranks`` in float32."""
         others = [m for m in range(t.order) if m != mode]
-        return gathered_bytes([lin.decode(m) for m in others],
+        return gathered_bytes([lin_field(lin, mode, m) for m in others],
                               [ranks[m] * 4 for m in others])
+
+    def edge_atomics(lin, mode: int, width: int) -> str:
+        """The atomic bytes of one off-sort call at ``width`` columns."""
+        rows = edge_atomic_rows(torch, lin_field(lin, mode, mode),
+                                mttkrp_cuda.SEGMENT)
+        return (f"atomics {rows} rows x {width} x 4 B = "
+                f"{rows * width * 4 / 1e6:.3f} MB")
 
     k3, k3off = totals(), totals()
     lins = {}  # kept for the TTMc phase
@@ -2665,6 +2693,19 @@ def main() -> int:
         if sm == 0:  # the sort mode the linearized fit runs
             add_times(k3, ms, plain_ms, nbytes, ops_count)
         for tm in (m for m in range(t.order) if m != sm):
+            # the one-time build of the mode's ordered stream, timed apart
+            # from the cached one the calls below walk
+            build_ms = time_ms(torch, lambda: ordered_stream(lin, tm),
+                               warmup=1, reps=5)
+            hi, lo, vals = linearized_cuda.off_sort_stream(lin, tm)
+            stream_mb = sum(x.numel() * x.element_size()
+                            for x in (hi, lo, vals)) / 1e6
+            print(f"[K3-off] sort mode {sm} mode {tm}: ordered stream "
+                  f"{vals.shape[0]} entries ({lin.padded_nnz} stored), "
+                  f"{stream_mb:.1f} MB, built in {build_ms:.4f} ms "
+                  f"(median of 5 after 1 warm-up; reads "
+                  f"{lin.padded_nnz * 12 / 1e6:.1f} MB)")
+            del hi, lo, vals
             got = ops.mttkrp_lin(lin, factors, tm)
             what = f"off-sort MTTKRP sort mode {sm} mode {tm}"
             err = max_err(torch, got, ref.mttkrp_lin_ref(lin, factors, tm),
@@ -2679,14 +2720,12 @@ def main() -> int:
                                lambda: ref.mttkrp_lin_ref(lin, factors, tm))
             nbytes, ops_count, b_ms, b_by = lin_mttkrp_bound(lin, tm)
             gathered = lin_gathers(lin, tm, [RANK] * t.order)
-            red = atomic_runs(torch, lin.decode(tm), mttkrp_cuda.SEGMENT)
             print(f"[K3-off] sort mode {sm} mode {tm} err f32={err:.3e} vs "
                   f"K1={err_k1:.3e} bf16={err_bf16:.3e} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}, "
                   f"{nbytes / 1e6:.1f} MB); L2 gathers {gathered / 1e9:.3f} "
-                  f"GB at {gathered / ms / 1e6:.1f} GB/s; atomics {red} runs"
-                  f" x {RANK} x 4 B = {red * RANK * 4 / 1e9:.3f} GB at "
-                  f"{red * RANK * 4 / ms / 1e6:.1f} GB/s")
+                  f"GB at {gathered / ms / 1e6:.1f} GB/s; "
+                  f"{edge_atomics(lin, tm, RANK)}")
             k3off["max_abs_err"] = max(k3off["max_abs_err"], err)
             if sm == 0:  # the modes the linearized fit runs off the sort
                 add_times(k3off, ms, plain_ms, nbytes, ops_count)
@@ -2829,12 +2868,13 @@ def main() -> int:
     fb = tuple(a.bfloat16() for a in tf)
 
     def ttmc_bound(nnz_bytes: int, pnnz: int, mode: int):
-        """Bound of one TTMc call: the workspace's stored entries (padding
-        included, as the kernel reads them), the other factors and the
-        output, against the operations the function needs for the tensor's
-        non-zeros: the Kronecker row built up one factor at a time
-        (val * F_1 row, then R_1 R_2 products, ... up to W) and one add per
-        column, 16 + 256 + 256 = 528 flops an entry at (16, 16, 16)."""
+        """Bound of one TTMc call: the stored entries of the stream the
+        kernel walks (padding included where it has any), the other
+        factors and the output, against the operations the function needs
+        for the tensor's non-zeros: the Kronecker row built up one factor
+        at a time (val * F_1 row, then R_1 R_2 products, ... up to W) and
+        one add per column, 16 + 256 + 256 = 528 flops an entry at (16, 16,
+        16)."""
         others = [r for m, r in enumerate(TUCKER_RANKS) if m != mode]
         width = math.prod(others)
         nbytes = (pnnz * nnz_bytes
@@ -2908,18 +2948,17 @@ def main() -> int:
                                rtol=5e-2, atol=5e-2, what=f"{what} bfloat16")
             ms = time_ms(torch, lambda: ops.ttmc_lin(lin, tf, tm))
             plain_ms = time_ms(torch, lambda: ref.ttmc_lin_ref(lin, tf, tm))
-            nbytes, ops_count, b_ms, b_by = ttmc_bound(12, lin.padded_nnz, tm)
+            n = lin_stream(lin, tm)[2].shape[0]
+            nbytes, ops_count, b_ms, b_by = ttmc_bound(12, n, tm)
             gathered = lin_gathers(lin, tm, TUCKER_RANKS)
             width = got.shape[1]
-            red = atomic_runs(torch, lin.decode(tm), mttkrp_cuda.SEGMENT)
             print(f"[K3-off-TTMc] sort mode {sm} mode {tm} W={width} err "
                   f"f32={err:.3e} vs K1-TTMc={err_k1:.3e} bf16={err_bf16:.3e}"
                   f" ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f}"
                   f" ({b_by}, {nbytes / 1e6:.1f} MB, {ops_count / 1e9:.2f} "
                   f"GFLOP); L2 gathers {gathered / 1e9:.3f} GB at "
-                  f"{gathered / ms / 1e6:.1f} GB/s; atomics {red} runs x "
-                  f"{width} x 4 B = {red * width * 4 / 1e9:.3f} GB at "
-                  f"{red * width * 4 / ms / 1e6:.1f} GB/s; output "
+                  f"{gathered / ms / 1e6:.1f} GB/s; "
+                  f"{edge_atomics(lin, tm, width)}; output "
                   f"{t.dims[tm] * width * 4 / 1e6:.1f} MB")
             k3toff["max_abs_err"] = max(k3toff["max_abs_err"], err)
             if sm == 0:  # the modes the linearized Tucker fit runs

@@ -3,8 +3,8 @@ the counterpart of ``repro.core``."""
 from .coo import (PAPER_DATASETS, SparseTensor, dedupe, from_factors,
                   paper_dataset, random_sparse, read_tns, resolve_device,
                   write_tns)
-from .csf import (CSF, build_all_modes, build_csf, build_csf_loop_reference,
-                  build_csf_tiled)
+from .csf import (CSF, CSFFlat, CSFTiled, build_all_modes, build_csf,
+                  build_csf_loop_reference, build_csf_tiled)
 from .linearized import Linearized, build_linearized
 from .mttkrp import (IMPLS, REGISTRY, ImplSpec, available_impls, get_impl,
                      mttkrp, mttkrp_cuda, mttkrp_dense,
@@ -25,7 +25,7 @@ __all__ = [
     "PAPER_DATASETS", "SparseTensor", "dedupe", "from_factors",
     "paper_dataset", "random_sparse", "read_tns", "resolve_device",
     "write_tns",
-    "CSF", "build_all_modes", "build_csf", "build_csf_loop_reference",
+    "CSF", "CSFFlat", "CSFTiled", "build_all_modes", "build_csf", "build_csf_loop_reference",
     "build_csf_tiled",
     "Linearized", "build_linearized",
     "IMPLS", "REGISTRY", "ImplSpec", "available_impls", "get_impl", "mttkrp",

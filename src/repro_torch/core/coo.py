@@ -82,6 +82,10 @@ class SparseTensor:
     def padded_nnz(self) -> int:
         return int(self.vals.shape[0])
 
+    @property
+    def density(self) -> float:
+        return float(self.nnz) / float(np.prod([float(d) for d in self.dims]))
+
     def norm(self) -> torch.Tensor:
         """Frobenius norm of the tensor (padding vals are zero)."""
         return torch.sqrt(torch.sum(self.vals.double() ** 2)).to(

@@ -82,6 +82,16 @@ class CSF:
     def num_blocks(self) -> int:
         return self.padded_nnz // self.block
 
+    @property
+    def padding_overhead(self) -> float:
+        """Fraction of entries that are padding (the layout's cost)."""
+        return 1.0 - self.nnz / max(1, self.padded_nnz)
+
+
+# The reference's names for the two historical layouts, now one type.
+CSFFlat = CSF
+CSFTiled = CSF
+
 
 def _lexsort_perm(inds: np.ndarray, mode: int, other: tuple[int, ...]):
     """Sort permutation: primary key = mode index, then the remaining modes."""

@@ -22,7 +22,9 @@ right shift before combining words; the CUDA kernel
 
 The build is host-side numpy with one stable argsort (the paper's "Sort"
 stage, once for all modes); the finished arrays move to the tensor's
-device.
+device.  :func:`ordered_stream` reorders the entries by another mode's
+field, on the workspace's device, for the kernels that run that mode
+(``kernels/linearized_cuda.py``); the reference has no such step.
 """
 from __future__ import annotations
 
@@ -261,3 +263,32 @@ def build_linearized(
         row_tile=row_tile,
         sort_mode=sort_mode,
     )
+
+
+def ordered_stream(lin: Linearized, mode: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The workspace's entries ordered by ``mode``'s field, for a mode other
+    than its sort mode: ``(hi, lo, vals)``, on the workspace's device.
+
+    One stable sort keyed by the mode's coordinate, its permutation applied
+    to the three arrays: the rows never decrease, and each row's entries
+    keep their linearized order (so the sort mode's coordinates stay
+    ordered within a row).  The words are unchanged, so every field still
+    decodes with ``lin.offsets`` / ``lin.widths``.  The padding (value 0,
+    every field but the sort mode's 0) is left out: it adds nothing."""
+    if not 0 <= mode < lin.order:
+        raise ValueError(f"mode {mode} is outside 0..{lin.order - 1}")
+    if mode == lin.sort_mode:
+        raise ValueError(f"mode {mode} is the workspace's sort mode: its "
+                         "stream is the workspace itself")
+    real = lin.vals != 0
+    for m in range(lin.order):
+        if m != lin.sort_mode:
+            real |= lin.decode(m) != 0
+    keep = real.nonzero().squeeze(1)
+    key = lin.decode(mode).index_select(0, keep)
+    if lin.widths[mode] == FIELD_BITS:  # past int32's sign bit
+        key = key.long() & 0xFFFFFFFF
+    perm = keep.index_select(0, torch.sort(key, stable=True).indices)
+    return (lin.hi.index_select(0, perm), lin.lo.index_select(0, perm),
+            lin.vals.index_select(0, perm))

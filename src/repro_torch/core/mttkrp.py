@@ -23,8 +23,8 @@ impl                what it reproduces
 ``linearized_cuda`` the linearized workspace on the hand-written kernel
                     (kernels/csrc/linearized.cu, decode inside the kernel),
                     in the ``linearized_pallas`` slot: on a CUDA tensor
-                    every mode, the sort mode storing its rows and the
-                    others adding them with atomics; on a CPU tensor the
+                    every mode, the others over the entries re-sorted by
+                    their row once per workspace; on a CPU tensor the
                     sort mode's plain version, the others as above.
 ``dense``           dense einsum oracle (tests only).
 ==================  =========================================================

@@ -28,29 +28,32 @@
 // Both uses, on every mode, run the row-segmented kernel of segmented.cuh
 // on LinStream (12 B an entry: hi, lo, value), with the row decoded from
 // the target mode's field: MTTKRP with the Khatri-Rao column map (lane l
-// owns columns l + 32 k), TTMc with the Kronecker one.  What bounds them on
-// this card: the factor rows gathered from L2, as for K1 (mttkrp.cu), on
-// the sort mode; on the other modes also the atomics.  The sort mode's
-// stream never decreases in row, padding included (field_offsets makes the
-// sort mode the most significant field, and padding packs its tile's last
-// real row, or an empty tile's first, with value 0), so it takes the sorted
-// flush: a row is stored when it changes.  The other modes' streams are
-// ordered by the sort mode first, so a row recurs anywhere: the unsorted
-// flush adds every run of equal rows to the zeroed output with atomics (at
-// yelp's sparsity about one run an entry: runs x width x 4 B of REDs, 1.1
-// GB a call at R = 35 and 8.2 GB at W = 256).
+// owns columns l + 32 k), TTMc with the Kronecker one.  Every stream it
+// walks is ordered by the target's row, so a row is stored once when it
+// changes and only a warp range's first and last rows are added with
+// atomics.  On the sort mode the stream is the workspace itself
+// (field_offsets makes the sort mode the most significant field, and
+// padding packs its tile's last real row, or an empty tile's first, with
+// value 0).  On another mode, whose rows recur anywhere in the workspace,
+// it is the workspace's entries stably re-sorted by that mode's field
+// (core/linearized.py::ordered_stream, padding left out), built once per
+// workspace and mode on the card by the wrapper; its words are unchanged,
+// so the same fields decode them.  Adding every run of the workspace's own
+// order with atomics instead took 1.1 GB of REDs a call at R = 35 and 8.2
+// GB at W = 256 on yelp; the ordered stream leaves at most 2 rows a warp
+// range (about 4 and 32 MB).  What bounds every mode then, as for K1
+// (mttkrp.cu): the factor rows gathered from L2.
 #include <cstdint>
 
 #include "segmented.cuh"
 
 // hi/lo: the packed index's 32-bit words, vals: the values, pnnz of each
-// (padding included).  The target mode's coordinate is the bit field
+// (padding included, where the stream has any).  The target mode's coordinate is the bit field
 // (row_offset, row_width); factors: n_other device pointers, one per other
 // mode in ascending mode order, each a contiguous (dim, ranks[i]) matrix
 // indexed by the field (offsets[i], widths[i]); ranks: a host array of
-// n_other ints, all equal for MTTKRP (kronecker = 0).  sorted: the target is
-// the workspace's sort mode (its rows never decrease), else every run is
-// added with atomics.  out: a zeroed (dims[target], width) float32 matrix,
+// n_other ints, all equal for MTTKRP (kronecker = 0).  The stream's target
+// rows must never decrease.  out: a zeroed (dims[target], width) float32 matrix,
 // width = the rank (MTTKRP) or prod ranks (TTMc, kronecker = 1).
 // vals_bf16 / factors_bf16 select bfloat16 over float32.  cols_per_lane,
 // segment, ctas and slices give the launch (kernels/mttkrp_cuda.py::
@@ -61,7 +64,7 @@ extern "C" int lin_launch(const void* hi_words, const void* lo_words,
                           const void* const* factors, const int* ranks,
                           int n_other, int factors_bf16, int row_offset,
                           int row_width, const int* offsets,
-                          const int* widths, int sorted, void* out,
+                          const int* widths, void* out,
                           long long pnnz, int kronecker, int cols_per_lane,
                           int segment, int ctas, int slices, void* stream) {
   const auto field_ok = [](int offset, int width) {
@@ -89,14 +92,8 @@ extern "C" int lin_launch(const void* hi_words, const void* lo_words,
                              static_cast<const uint32_t*>(lo_words),
                              static_cast<const TV*>(vals), row, other};
     const int w = static_cast<int>(width);
-    if (sorted)
-      return kronecker ? launch_ttmc<true, TF>(s, f, ranks, n_other, w, pnnz,
-                                               g, o, st)
-                       : launch_mttkrp<true, TF>(s, f, w, n_other, pnnz, g,
-                                                 o, st);
-    return kronecker ? launch_ttmc<false, TF>(s, f, ranks, n_other, w, pnnz,
-                                              g, o, st)
-                     : launch_mttkrp<false, TF>(s, f, w, n_other, pnnz, g, o,
-                                                st);
+    return kronecker ? launch_ttmc<TF>(s, f, ranks, n_other, w, pnnz, g, o,
+                                       st)
+                     : launch_mttkrp<TF>(s, f, w, n_other, pnnz, g, o, st);
   });
 }

@@ -59,10 +59,10 @@ extern "C" int csf_launch(const void* rows, const void* other_ids,
     const CsfStream<TV> s = {static_cast<const int*>(rows),
                              static_cast<const int*>(other_ids),
                              static_cast<const TV*>(vals)};
-    // the CSF is sorted by row: the sorted flush
+    // the CSF is sorted by row, as the kernel body needs
     if (kronecker)
-      return launch_ttmc<true, TF>(s, f, ranks, n_other,
-                                   static_cast<int>(width), pnnz, g, o, st);
-    return launch_mttkrp<true, TF>(s, f, ranks[0], n_other, pnnz, g, o, st);
+      return launch_ttmc<TF>(s, f, ranks, n_other, static_cast<int>(width),
+                             pnnz, g, o, st);
+    return launch_mttkrp<TF>(s, f, ranks[0], n_other, pnnz, g, o, st);
   });
 }

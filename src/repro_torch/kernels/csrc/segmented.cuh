@@ -12,8 +12,9 @@
 // a VMEM output tile with a one-hot matmul over a sequential grid; here no
 // output tile is kept at all.
 //
-// Computes, for every stored entry n of a stream, with float32
-// accumulation, for tensor order 2..8 (k = order - 1 other modes):
+// Computes, for every stored entry n of a stream whose rows never decrease,
+// with float32 accumulation, for tensor order 2..8 (k = order - 1 other
+// modes):
 //   out[row(n), c] += val(n) * prod_{i<k} F_i[id_i(n), col_i(c)]
 // under one of two column maps:
 //   KhatriRaoStrided (MTTKRP): one shared rank R, col_i(c) = c;
@@ -60,23 +61,20 @@
 //    main paths) is compiled with NO = 2 and its loops resolve at compile
 //    time; other orders predicate their loads.
 //  * A run of equal rows is summed in registers and flushed when the row
-//    changes, under one of two flush policies, fixed at compile time:
-//    - Sorted (the CSF, and the linearized workspace's sort mode): the
-//      stream never decreases in row, padding included (padding points at a
-//      row of its own tile and carries value 0).  A row that starts and
-//      ends inside the warp's range is the warp's alone: a plain store.  The
-//      range's first and last rows may be shared with the neighbouring
-//      warps: atomicAdd into the output, which the wrapper zeroes.  So a
-//      call writes about (rows + 2 x warp ranges) x width floats.
-//    - Unsorted (the linearized workspace's other modes, whose stream is
-//      ordered by the sort mode's field): a row may recur anywhere, so every
-//      run is added with atomics (RED), 16 bytes at a time where the map's
-//      columns allow (sm_90's vector atomicAdd); runs of equal rows still
-//      merge in registers, and the padding (value 0, zero fields) is one run
-//      a tile.  A call adds about runs x width floats, one run an entry
-//      at yelp's sparsity: the REDs, not the gathers, may bound it.
-//    Either way a row's sum changes order, in the last bits, from run to
-//    run.
+//    changes.  Every stream is ordered by its row: the CSF and the
+//    linearized workspace's sort mode by construction (padding points at a
+//    row of its own tile and carries value 0), the linearized workspace's
+//    other modes by a stable re-sort of its entries on the target's field
+//    (core/linearized.py::ordered_stream, built once per workspace and
+//    mode).  So a row that starts and ends inside the warp's range is the
+//    warp's alone: a plain store.  Only the range's first and last rows may
+//    be shared with the neighbouring warps: atomicAdd into the output,
+//    which the wrapper zeroes.  A call writes about (rows + 2 x warp
+//    ranges) x width floats, at most 2 rows of atomics a range: on yelp's
+//    off-sort modes about 4 MB of atomics a call at R = 35 and 32 MB at
+//    W = 256, where adding every run of an unordered stream took 1.0-1.1
+//    and 7.3-8.2 GB.  A shared row's sum changes order, in the last bits,
+//    from run to run.
 //  * No dynamic shared memory and no per-call device query: the wrappers
 //    pick the launch in kernels/mttkrp_cuda.py (ttmc_geometry,
 //    mttkrp_geometry) and the launch is the only host work.
@@ -338,26 +336,6 @@ struct KroneckerRun {
       p[0] = acc[0];
     }
   }
-
-  // a run of an unsorted stream, added to its row: the lane's run of
-  // columns in vector atomics (16 or 8 bytes; the width is a multiple of
-  // CPL, so they are aligned)
-  __device__ __forceinline__ void add_to(float* __restrict__ out, int row,
-                                         const Lane& ln,
-                                         const float (&acc)[CPL]) const {
-    if (!ln.active) return;
-    float* p = out + static_cast<long long>(row) * width + ln.c0;
-    if constexpr (CPL % 4 == 0) {
-#pragma unroll
-      for (int c = 0; c < CPL; c += 4)
-        atomicAdd(reinterpret_cast<float4*>(p + c),
-                  make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]));
-    } else if constexpr (CPL == 2) {
-      atomicAdd(reinterpret_cast<float2*>(p), make_float2(acc[0], acc[1]));
-    } else {
-      atomicAdd(p, acc[0]);
-    }
-  }
 };
 
 // MTTKRP: lane l owns columns c0 + 32 k, k < K, of the CTA's slice of R
@@ -443,27 +421,14 @@ struct KhatriRaoStrided {
         p[k * kLanes] = acc[k];
     }
   }
-
-  // a run of an unsorted stream, added to its row: each of the lane's
-  // columns in a scalar atomic, the warp's 32 of a group side by side
-  __device__ __forceinline__ void add_to(float* __restrict__ out, int row,
-                                         const Lane& ln,
-                                         const float (&acc)[K]) const {
-    flush(out, row, ln, acc, true);
-  }
 };
 
-// One warp per `segment` stored entries of `stream`, each lane summing the
-// columns `map` gives it; see the header.  NO is the number of other modes
-// when fixed at compile time (2: order 3), else 0 and n_other says.  Sorted:
-// the stream never decreases in row (the flush policy; see the header).
-// Left to pick the CTAs a SM (a second bound of 0), ptxas traded a few
-// bytes of spill for one more CTA in some unsorted instances (24 B at order
-// 3, bfloat16 factors, 16 columns a lane); at a bound of 1 CTA none spills
-// and the main paths' unsorted kernels ran as fast.  The sorted instances
-// keep the choice they were tuned with.
-template <typename Stream, typename Map, int NO, bool Sorted>
-__global__ void __launch_bounds__(kThreads, Sorted ? 0 : 1)
+// One warp per `segment` stored entries of `stream`, whose rows never
+// decrease, each lane summing the columns `map` gives it; see the header.
+// NO is the number of other modes when fixed at compile time (2: order 3),
+// else 0 and n_other says.  ptxas picks the CTAs a SM.
+template <typename Stream, typename Map, int NO>
+__global__ void __launch_bounds__(kThreads)
 segmented_kernel(Stream stream, Map map, int n_other, long long pnnz,
                  int segment, float* __restrict__ out) {
   constexpr int G = Map::template kGroup<NO>;
@@ -507,10 +472,7 @@ segmented_kernel(Stream stream, Map map, int n_other, long long pnnz,
       for (int g = 0; g < G; ++g) {
         if (j0 + g >= count) break;
         if (rows[g] != cur) {
-          if constexpr (Sorted)
-            map.flush(out, cur, ln, acc, cur == first_row);
-          else
-            map.add_to(out, cur, ln, acc);
+          map.flush(out, cur, ln, acc, cur == first_row);
 #pragma unroll
           for (int c = 0; c < C; ++c) acc[c] = 0.f;
           cur = rows[g];
@@ -521,10 +483,7 @@ segmented_kernel(Stream stream, Map map, int n_other, long long pnnz,
     now = stream.decode(ahead, no);
     ahead = stream.load(no, base + 2 * kLanes + lane, end);
   }
-  if constexpr (Sorted)
-    map.flush(out, cur, ln, acc, true);
-  else
-    map.add_to(out, cur, ln, acc);
+  map.flush(out, cur, ln, acc, true);
 }
 
 // A launch, picked by the wrapper (kernels/mttkrp_cuda.py): `cols_per_lane`
@@ -553,23 +512,22 @@ inline bool segmented_geometry_ok(const SegmentedGeometry& g,
          (g.slices - 1) * kLanes * c < width;
 }
 
-template <bool Sorted, typename Stream, typename Map>
+template <typename Stream, typename Map>
 int launch_segmented(const Stream& s, const Map& map, int n_other,
                      long long pnnz, const SegmentedGeometry& g, float* out,
                      cudaStream_t stream) {
   const dim3 grid(g.ctas, g.slices);
   if (n_other == 2)
-    segmented_kernel<Stream, Map, 2, Sorted><<<grid, kThreads, 0, stream>>>(
+    segmented_kernel<Stream, Map, 2><<<grid, kThreads, 0, stream>>>(
         s, map, n_other, pnnz, g.segment, out);
   else
-    segmented_kernel<Stream, Map, 0, Sorted><<<grid, kThreads, 0, stream>>>(
+    segmented_kernel<Stream, Map, 0><<<grid, kThreads, 0, stream>>>(
         s, map, n_other, pnnz, g.segment, out);
   return cudaGetLastError();
 }
 
-// TTMc of `s` at Kronecker width over the factors of `ranks`, under the
-// flush policy `Sorted`.
-template <bool Sorted, typename TF, typename Stream>
+// TTMc of `s` at Kronecker width over the factors of `ranks`.
+template <typename TF, typename Stream>
 int launch_ttmc(const Stream& s, const FactorPtrs& factors, const int* ranks,
                 int n_other, int width, long long pnnz,
                 const SegmentedGeometry& g, float* out, cudaStream_t stream) {
@@ -578,9 +536,8 @@ int launch_ttmc(const Stream& s, const FactorPtrs& factors, const int* ranks,
   switch (g.cols_per_lane) {
 #define SEGMENTED_TTMC_CASE(CPL)                                         \
   case CPL:                                                              \
-    return launch_segmented<Sorted>(                                     \
-        s, KroneckerRun<TF, CPL>{factors, cols, width}, n_other, pnnz, g, \
-        out, stream);
+    return launch_segmented(s, KroneckerRun<TF, CPL>{factors, cols, width}, \
+                            n_other, pnnz, g, out, stream);
     SEGMENTED_TTMC_CASE(1)
     SEGMENTED_TTMC_CASE(2)
     SEGMENTED_TTMC_CASE(4)
@@ -592,17 +549,16 @@ int launch_ttmc(const Stream& s, const FactorPtrs& factors, const int* ranks,
   }
 }
 
-// MTTKRP of `s` at rank `rank`, under the flush policy `Sorted`.
-template <bool Sorted, typename TF, typename Stream>
+// MTTKRP of `s` at rank `rank`.
+template <typename TF, typename Stream>
 int launch_mttkrp(const Stream& s, const FactorPtrs& factors, int rank,
                   int n_other, long long pnnz, const SegmentedGeometry& g,
                   float* out, cudaStream_t stream) {
   switch (g.cols_per_lane) {
 #define SEGMENTED_MTTKRP_CASE(K)                                          \
   case K:                                                                 \
-    return launch_segmented<Sorted>(                                      \
-        s, KhatriRaoStrided<TF, K>{factors, rank}, n_other, pnnz, g, out, \
-        stream);
+    return launch_segmented(s, KhatriRaoStrided<TF, K>{factors, rank},   \
+                            n_other, pnnz, g, out, stream);
     SEGMENTED_MTTKRP_CASE(1)
     SEGMENTED_MTTKRP_CASE(2)
     SEGMENTED_MTTKRP_CASE(4)

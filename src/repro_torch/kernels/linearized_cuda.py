@@ -7,14 +7,16 @@ and factor-row gathers (and for TTMc the Kronecker rows and all-ones
 operand) its callers ran in XLA; on the other modes, where the reference
 has no kernel, the jnp decode and scatter of ``core.mttkrp.
 mttkrp_linearized`` and ``core.ttmc.ttmc_linearized``.  Every mode runs the
-row-segmented kernel of ``csrc/segmented.cuh`` on the packed stream, with
-the launch of :func:`~repro_torch.kernels.mttkrp_cuda.mttkrp_geometry` or
-:func:`~repro_torch.kernels.mttkrp_cuda.ttmc_geometry`: the sort mode's
-rows never decrease, so :func:`mttkrp` and :func:`ttmc` store a row when it
-changes; the other modes' rows recur anywhere, so :func:`mttkrp_off_sort`
-and :func:`ttmc_off_sort` add every run of equal rows with atomics.  The
-design notes are at the top of the CUDA sources.  The plain versions are
-:func:`repro_torch.kernels.ref.mttkrp_lin_ref` and :func:`~repro_torch.
+row-segmented kernel of ``csrc/segmented.cuh`` on a packed stream whose
+rows never decrease, so a row is stored when it changes, with the launch
+of :func:`~repro_torch.kernels.mttkrp_cuda.mttkrp_geometry` or
+:func:`~repro_torch.kernels.mttkrp_cuda.ttmc_geometry` at the stream's
+length: :func:`mttkrp` and :func:`ttmc` walk the workspace itself, ordered
+by its sort mode; :func:`mttkrp_off_sort` and :func:`ttmc_off_sort` walk
+the workspace's entries reordered by the target mode's field
+(:func:`off_sort_stream`, built once per workspace and mode on its device).
+The design notes are at the top of the CUDA sources.  The plain versions
+are :func:`repro_torch.kernels.ref.mttkrp_lin_ref` and :func:`~repro_torch.
 kernels.ref.ttmc_lin_ref`, for any mode; these wrappers take CUDA tensors
 only and launch or raise.
 """
@@ -23,11 +25,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import weakref
 from typing import Sequence
 
 import torch
 
-from repro_torch.core.linearized import Linearized
+from repro_torch.core.linearized import Linearized, ordered_stream
 
 from . import _build
 from .mttkrp_cuda import mttkrp_geometry, ttmc_geometry
@@ -41,10 +44,39 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("linearized")
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.lin_launch.argtypes = [p, p, p, i, ctypes.POINTER(ctypes.c_void_p),
-                               ip, i, i, i, i, ip, ip, i, p,
+                               ip, i, i, i, i, ip, ip, p,
                                ctypes.c_longlong, i, i, i, i, i, p]
     lib.lin_launch.restype = ctypes.c_int
     return lib
+
+
+# (workspace, mode) -> its target-ordered stream; keyed by the workspace's
+# identity (``Linearized`` compares by identity), dropped with it
+_STREAMS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def off_sort_stream(lin: Linearized, mode: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(hi, lo, vals)`` of the workspace's entries ordered by ``mode``'s
+    field (:func:`repro_torch.core.linearized.ordered_stream`), built on
+    the workspace's device at the first call for ``(lin, mode)`` and reused
+    by every later one; ``off_sort_stream.builds`` counts the builds."""
+    streams = _STREAMS.setdefault(lin, {})
+    if mode not in streams:
+        streams[mode] = ordered_stream(lin, mode)
+        off_sort_stream.builds += 1
+    return streams[mode]
+
+
+def prepare_off_sort(ws: Sequence, impls: Sequence[str]) -> None:
+    """Build the target-ordered stream of every mode that ``impls`` run as
+    ``linearized_cuda`` off the sort mode of a linearized workspace on the
+    card, so that its cost falls under the Sort, where the workspace's
+    own."""
+    for mode, (w, impl) in enumerate(zip(ws, impls)):
+        if (impl == "linearized_cuda" and isinstance(w, Linearized)
+                and w.vals.is_cuda and mode != w.sort_mode):
+            off_sort_stream(w, mode)
 
 
 def stream_fields(lin: Linearized, mode: int
@@ -107,11 +139,15 @@ def _check_inputs(lin: Linearized, factors: Sequence[torch.Tensor],
 
 def _launch(lin: Linearized, factors: Sequence[torch.Tensor], mode: int, *,
             kronecker: bool) -> torch.Tensor:
-    """Check the inputs and run the kernel on ``mode``, the sorted flush on
-    the sort mode and the atomic one on the others; the (dims[mode], width)
-    result in the factors' dtype, accumulated in float32."""
+    """Check the inputs and run the kernel on ``mode``: over the workspace
+    on its sort mode, over :func:`off_sort_stream` on the others; the
+    (dims[mode], width) result in the factors' dtype, accumulated in
+    float32."""
     ranks = _check_inputs(lin, factors, mode, kronecker=kronecker)
     width = math.prod(ranks) if kronecker else ranks[0]
+    hi, lo, vals = ((lin.hi, lin.lo, lin.vals) if mode == lin.sort_mode
+                    else off_sort_stream(lin, mode))
+    n_entries = int(vals.shape[0])
     lib = _library()
     (row_offset, row_width), other, fields = stream_fields(lin, mode)
     fdtype = factors[other[0]].dtype
@@ -122,16 +158,15 @@ def _launch(lin: Linearized, factors: Sequence[torch.Tensor], mode: int, *,
     c_ranks = (ctypes.c_int * n)(*ranks)
     offsets = (ctypes.c_int * n)(*[off for off, _ in fields])
     widths = (ctypes.c_int * n)(*[w for _, w in fields])
-    geo = (ttmc_geometry(lin.padded_nnz, ranks) if kronecker
-           else mttkrp_geometry(lin.padded_nnz, width))
+    geo = (ttmc_geometry(n_entries, ranks) if kronecker
+           else mttkrp_geometry(n_entries, width))
     stream = torch.cuda.current_stream(lin.vals.device).cuda_stream
     code = lib.lin_launch(
-        lin.hi.data_ptr(), lin.lo.data_ptr(), lin.vals.data_ptr(),
-        int(lin.vals.dtype == torch.bfloat16), ptrs, c_ranks, n,
+        hi.data_ptr(), lo.data_ptr(), vals.data_ptr(),
+        int(vals.dtype == torch.bfloat16), ptrs, c_ranks, n,
         int(fdtype == torch.bfloat16), row_offset, row_width, offsets, widths,
-        int(mode == lin.sort_mode), out.data_ptr(), lin.padded_nnz,
-        int(kronecker), geo.cols_per_lane, geo.segment, geo.ctas, geo.slices,
-        stream)
+        out.data_ptr(), n_entries, int(kronecker), geo.cols_per_lane,
+        geo.segment, geo.ctas, geo.slices, stream)
     _build.check(lib, code, "lin_launch kernel launch")
     return out if fdtype == torch.float32 else out.to(fdtype)
 
@@ -177,8 +212,9 @@ def ttmc(lin: Linearized, factors: Sequence[torch.Tensor],
 def mttkrp_off_sort(lin: Linearized, factors: Sequence[torch.Tensor],
                     mode: int) -> torch.Tensor:
     """MTTKRP for a mode other than the workspace's sort mode: (dims[mode],
-    R), in the factors' dtype, accumulated in float32 (every run added
-    with atomics, so the last bits change from call to call)."""
+    R), in the factors' dtype, accumulated in float32, over the entries
+    ordered by ``mode`` (:func:`off_sort_stream`; the first call on a
+    workspace and mode builds it)."""
     _off_sort_mode(lin, mode)
     out = _launch(lin, factors, mode, kronecker=False)
     mttkrp_off_sort.launches += 1
@@ -190,7 +226,8 @@ def ttmc_off_sort(lin: Linearized, factors: Sequence[torch.Tensor],
     """TTMc for a mode other than the workspace's sort mode: (dims[mode],
     prod of the other modes' ranks, the sort mode's among them) in
     ``kron_chain``'s column order, in the factors' dtype, accumulated in
-    float32 with atomics."""
+    float32, over the entries ordered by ``mode`` (:func:`off_sort_stream`).
+    """
     _off_sort_mode(lin, mode)
     out = _launch(lin, factors, mode, kronecker=True)
     ttmc_off_sort.launches += 1
@@ -201,3 +238,4 @@ mttkrp.launches = 0
 ttmc.launches = 0
 mttkrp_off_sort.launches = 0
 ttmc_off_sort.launches = 0
+off_sort_stream.builds = 0

@@ -32,10 +32,11 @@ def mttkrp_lin(lin: Linearized, factors: Sequence[torch.Tensor],
     """MTTKRP for any mode from the linearized workspace: (dims[mode], R)
     in the factors' dtype.
 
-    On a CUDA tensor every mode runs the kernel: the sort mode's stream is
-    ordered by its output row (``linearized_cuda.mttkrp``), the other
-    modes' is not (``linearized_cuda.mttkrp_off_sort``, which adds every
-    run with atomics).  On a CPU tensor the sort mode runs the kernel's
+    On a CUDA tensor every mode runs the kernel: the sort mode over the
+    workspace, which is ordered by its output row (``linearized_cuda.
+    mttkrp``), the other modes over the entries re-sorted by theirs
+    (``linearized_cuda.mttkrp_off_sort``, the stream built at the first
+    call).  On a CPU tensor the sort mode runs the kernel's
     plain version and the other modes the plain decode and ``index_add_``
     of ``core.mttkrp.mttkrp_linearized``, as the reference computes them
     outside its kernel."""

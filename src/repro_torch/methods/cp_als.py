@@ -20,6 +20,7 @@ from repro_torch.core.cpals import (CPALSState, CPDecomp, _iteration,
                                     resolve_plan)
 from repro_torch.core.gram import gram
 from repro_torch.ingest.api import Ingested
+from repro_torch.kernels.linearized_cuda import prepare_off_sort
 from repro_torch.obs import trace as obs_trace
 
 from .iteration import IterationRecorder
@@ -88,13 +89,17 @@ def plan_and_build(ing, t, impl: str, plan, *, rank, block: int,
                    row_tile: int):
     """The paper's Sort stage for the CP methods: ``(plan, workspaces)``.
     An ingested handle plans with its ingest-time stats and serves its
-    cached workspaces; a tensor is planned and sorted here."""
+    cached workspaces; a tensor is planned and sorted here.  The streams
+    that ``linearized_cuda`` runs off the sort mode are ordered here too."""
     if ing is not None:
         p = plan if plan is not None else ing.plan(impl, rank=rank)
-        return p, ing.workspace(p)
-    p = resolve_plan(t, impl, plan, rank=rank, block=block,
-                     row_tile=row_tile)
-    return p, build_workspace(t, p)
+        ws = ing.workspace(p)
+    else:
+        p = resolve_plan(t, impl, plan, rank=rank, block=block,
+                         row_tile=row_tile)
+        ws = build_workspace(t, p)
+    prepare_off_sort(ws, p.impls)
+    return p, ws
 
 
 def auto_timers(timers, tracer=None):

@@ -28,6 +28,7 @@ import torch
 from repro_torch.core.coo import DeviceLike, GeneratorLike, make_generator
 from repro_torch.core.cpals import _timed, build_workspace
 from repro_torch.core.ttmc import ttmc
+from repro_torch.kernels.linearized_cuda import prepare_off_sort
 from repro_torch.obs import trace as obs_trace
 
 from .cp_als import _full_f32_matmul, auto_timers, resolve_ingested
@@ -172,7 +173,8 @@ def tucker_hooi(
     device, or an int seed; seed 0 when None) draws the initial orthonormal
     factors unless ``state`` hands them in (``iteration=0``) or resumes a
     run.  ``timers=`` synchronises the card around each routine and adds
-    its seconds under ``"sort"`` (plan + workspace build), ``"ttmc"``,
+    its seconds under ``"sort"`` (plan + workspace build, with the
+    ordered streams of ``linearized_cuda``'s off-sort modes), ``"ttmc"``,
     ``"svd"`` and ``"fit"``.  An :class:`~repro_torch.ingest.Ingested`
     ``t`` plans with its ingest-time stats, uses its cached workspaces and
     gets its factors back in the original labels.
@@ -188,15 +190,19 @@ def tucker_hooi(
             if p is None:
                 p = ing.plan(impl, rank=widths, kernel="ttmc",
                              factor_ranks=ranks)
-            return p, ing.workspace(p)
-        if p is None:
-            from repro_torch.plan import plan_decomposition
+            ws = ing.workspace(p)
+        else:
+            if p is None:
+                from repro_torch.plan import plan_decomposition
 
-            p = plan_decomposition(t, impl, rank=widths, block=block,
-                                   row_tile=row_tile, kernel="ttmc",
-                                   with_stats=impl == "auto",
-                                   factor_ranks=ranks)
-        return p, build_workspace(t, p)
+                p = plan_decomposition(t, impl, rank=widths, block=block,
+                                       row_tile=row_tile, kernel="ttmc",
+                                       with_stats=impl == "auto",
+                                       factor_ranks=ranks)
+            ws = build_workspace(t, p)
+        # the off-sort modes' ordered streams count under the Sort
+        prepare_off_sort(ws, p.impls)
+        return p, ws
 
     # tracing implies the timed path (see cp_als.auto_timers), so the
     # "ttmc" and "fit" spans time synchronised work

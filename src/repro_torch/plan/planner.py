@@ -122,6 +122,15 @@ class DecompPlan:
     def layouts(self) -> tuple[str, ...]:
         return tuple(p.layout for p in self.modes)
 
+    def mode_order_by_length(self) -> tuple[int, ...]:
+        """Modes sorted longest-first — the distributed driver partitions the
+        two longest modes over the grid and exchanges the shortest."""
+        if any(p.stats is None for p in self.modes):
+            raise ValueError("plan was built with with_stats=False; "
+                             "mode lengths are unknown")
+        return tuple(sorted(range(self.order),
+                            key=lambda m: -self.modes[m].stats.rows))
+
     def summary(self) -> str:
         return " ".join(f"m{p.mode}:{p.impl}" for p in self.modes)
 

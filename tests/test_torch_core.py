@@ -306,6 +306,47 @@ def test_plan_policies_and_refusals():
         plan_decomposition(pt, "pallas")
 
 
+@pytest.mark.parametrize("member", ["density", "padding_overhead",
+                                    "mode_order_by_length",
+                                    "mode_order_without_stats",
+                                    "csf_aliases"])
+def test_members_the_reference_defines(member):
+    """``SparseTensor.density``, ``CSF.padding_overhead``,
+    ``DecompPlan.mode_order_by_length`` (and its refusal of a plan without
+    stats, in the reference's words) and the ``CSFFlat`` / ``CSFTiled``
+    aliases, as the reference has them."""
+    dims = (40, 300, 20)
+    inds, vals = np_coo(dims, 3000, 13, skew=1.0)
+    jt, pt = both_tensors(inds, vals, dims)
+    if member == "density":
+        assert pt.density == jt.density
+        assert 0.0 < pt.density < 1.0
+    elif member == "padding_overhead":
+        for mode in range(3):
+            jc = jcore.build_csf(jt, mode, block=64, row_tile=16)
+            pc = build_csf(pt, mode, block=64, row_tile=16)
+            assert pc.padding_overhead == jc.padding_overhead
+            assert 0.0 < pc.padding_overhead < 1.0
+    elif member == "mode_order_by_length":
+        jp = jax_plan(jt, "auto", rank=8, backend="cpu")
+        pp = plan_decomposition(pt, "auto", rank=8)
+        assert pp.mode_order_by_length() == jp.mode_order_by_length()
+        assert pp.mode_order_by_length() == (1, 0, 2)
+    elif member == "mode_order_without_stats":
+        jp = jax_plan(jt, "gather_scatter", with_stats=False)
+        pp = plan_decomposition(pt, "gather_scatter", with_stats=False)
+        with pytest.raises(ValueError) as want:
+            jp.mode_order_by_length()
+        with pytest.raises(ValueError) as got:
+            pp.mode_order_by_length()
+        assert str(got.value) == str(want.value)
+    else:
+        from repro_torch.core import CSFFlat, CSFTiled
+
+        assert CSFFlat is CSF and CSFTiled is CSF
+        assert jcore.CSFFlat is jcore.CSF and jcore.CSFTiled is jcore.CSF
+
+
 # ---------------------------------------------------------------------------
 # isolation: the port never imports JAX or the JAX package
 # ---------------------------------------------------------------------------

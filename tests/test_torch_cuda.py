@@ -745,7 +745,7 @@ def test_mttkrp_kernel_order_four_on_card(cuda, rank, mode):
 
 # ---------------------------------------------------------------------------
 # K3-MTTKRP on the row-segmented body, and the off-sort kernels of the
-# linearized workspace (every run added with atomics)
+# linearized workspace (over its entries re-sorted by the target's row)
 # ---------------------------------------------------------------------------
 
 def _check_mttkrp(got, want, dims, mode, rank, dtype):
@@ -909,9 +909,9 @@ def test_off_sort_kernels_order_four_on_card(cuda, kernel, ranks, sort_mode,
 @pytest.mark.parametrize("sort_mode,mode", OFF_SORT_MODES)
 def test_off_sort_kernels_repeat_within_reassociation_on_card(
         cuda, kernel, sort_mode, mode):
-    """The atomics land in another order each call, on hot rows that many
-    warps share: two calls agree within float reassociation (1e-5
-    relative)."""
+    """The rows a warp range shares with its neighbours are added with
+    atomics, in another order each call, on hot rows that span several
+    ranges: two calls agree within float reassociation (1e-5 relative)."""
     t = _segment_tensor("skew", cuda)
     if kernel == "mttkrp":
         f = init_factors(t.dims, 35, 53, device=cuda)
@@ -924,6 +924,38 @@ def test_off_sort_kernels_repeat_within_reassociation_on_card(
     second = call(lin, f, mode)
     torch.cuda.synchronize()
     torch.testing.assert_close(first, second, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mttkrp", "ttmc"])
+def test_off_sort_kernels_build_the_stream_once_on_card(cuda, kernel):
+    """The first off-sort call on a workspace and mode builds its ordered
+    stream on the card; a second call on the same workspace builds none and
+    gives the same result within reassociation, and a fit on the
+    ``linearized_cuda`` plan builds its streams with the workspace, so its
+    launches build nothing more."""
+    t = _segment_tensor("skew", cuda)
+    if kernel == "mttkrp":
+        f = init_factors(t.dims, 35, 54, device=cuda)
+        call = linearized_cuda.mttkrp_off_sort
+    else:
+        f = _ttmc_factors(t.dims, (16, 16, 16), 54, cuda)
+        call = linearized_cuda.ttmc_off_sort
+    lin = build_linearized(t, sort_mode=0)
+    builds = linearized_cuda.off_sort_stream.builds
+    first = call(lin, f, 1)
+    assert linearized_cuda.off_sort_stream.builds == builds + 1
+    hi, lo, vals = linearized_cuda.off_sort_stream(lin, 1)
+    assert hi.is_cuda and vals.shape[0] == t.nnz
+    second = call(lin, f, 1)
+    torch.cuda.synchronize()
+    assert linearized_cuda.off_sort_stream.builds == builds + 1
+    torch.testing.assert_close(first, second, rtol=1e-5, atol=0.0)
+    builds = linearized_cuda.off_sort_stream.builds
+    method = "cp_als" if kernel == "mttkrp" else "tucker_hooi"
+    rank = 8 if kernel == "mttkrp" else (4, 4, 4)
+    fit(t, rank, method=method, impl="linearized_cuda", niters=2)
+    assert linearized_cuda.off_sort_stream.builds == builds + 2
 
 
 # ---------------------------------------------------------------------------

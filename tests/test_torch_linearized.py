@@ -14,6 +14,8 @@ import torch
 
 import repro.core.linearized as jlinmod
 from repro.core import mttkrp as jax_mttkrp
+from repro.core.mttkrp import mttkrp_linearized as jax_mttkrp_linearized
+from repro.core.ttmc import ttmc_linearized as jax_ttmc_linearized
 from repro.ingest.cache import content_key as jax_content_key
 from repro.kernels import ops as jops
 from repro.methods import fit as jax_fit
@@ -227,6 +229,58 @@ def test_linearized_impls_reject_other_workspaces():
     for impl in ("linearized", "linearized_cuda"):
         with pytest.raises(TypeError, match="Linearized workspace"):
             mttkrp(pt, f, 0, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# the off-sort modes' target-ordered stream, the card kernels' input
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", ["mttkrp", "ttmc"])
+@pytest.mark.parametrize("dims,sort_mode", [
+    (DIMS3, 0), (DIMS3, 1), (DIMS3, 2), (DIMS4, 2),
+    # yelp's dims: sort mode 1 puts mode 0's field across the words
+    (PAPER_DATASETS["yelp"][0], 1)])
+def test_ordered_stream_sums_to_reference_every_off_sort_mode(
+        dims, sort_mode, kernel):
+    """Each off-sort mode's stream (``core.linearized.ordered_stream``),
+    summed as the card kernel sums it (one run a row, each row's sum
+    stored once), equals the reference's scatter, ``mttkrp_linearized`` or
+    ``ttmc_linearized``, within 2e-4 (the file's MTTKRP tolerance: a float64
+    sum against the reference's float32)."""
+    jt, _ = _tensors(dims, nnz=800, seed=7, skew=1.0)
+    jlin = jlinmod.build_linearized(jt, block=64, row_tile=16,
+                                    sort_mode=sort_mode)
+    plin = _by_value(jlin)
+    rng = np.random.default_rng(8)
+    ranks = ([3, 4, 2, 3][:len(dims)] if kernel == "ttmc"
+             else [6] * len(dims))
+    fs = [rng.uniform(0.0, 1.0, (d, r)).astype(np.float32)
+          for d, r in zip(dims, ranks)]
+    jf = tuple(jnp.asarray(a) for a in fs)
+    for mode in (m for m in range(len(dims)) if m != sort_mode):
+        hi, lo, vals = plinmod.ordered_stream(plin, mode)
+        assert vals.shape[0] == plin.nnz
+
+        def field(m):
+            return plinmod.decode_field(hi, lo, plin.offsets[m],
+                                        plin.widths[m]).numpy()
+
+        rows = field(mode)
+        assert (np.diff(rows) >= 0).all()
+        contrib = vals.double().numpy()[:, None]
+        for m in range(len(dims)):
+            if m == mode:
+                continue
+            a = fs[m].astype(np.float64)[field(m)]
+            contrib = ((contrib[:, :, None] * a[:, None, :]).reshape(
+                contrib.shape[0], -1) if kernel == "ttmc" else contrib * a)
+        starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]])
+        got = np.zeros((dims[mode], contrib.shape[1]))
+        got[rows[starts]] = np.add.reduceat(contrib, starts)
+        want = (jax_ttmc_linearized(jlin, jf, mode) if kernel == "ttmc"
+                else jax_mttkrp_linearized(jlin, jf, mode))
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4,
+                                   atol=2e-4, err_msg=f"mode {mode}")
 
 
 # ---------------------------------------------------------------------------

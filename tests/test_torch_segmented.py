@@ -6,13 +6,14 @@ the launch geometries cover every stored entry and every output column;
 its decode of the packed words (a 64-bit shift and mask), over the fields
 the wrapper hands it for any target mode, gives the workspace's
 coordinates, on a field that straddles the two words too; and over a
-sorted stream (the CSF, or the linearized workspace's sort mode) the rows
-never decrease, padding included, so that a row which starts and ends
-inside a warp's range lies in no other range and its plain store races
-with nothing.  Numpy models of the two flush policies (a plain store of
-the rows a range owns; every run added with atomics on the workspace's
-other modes) then sum to the plain versions.  This file imports no JAX.
+sorted stream (the CSF, the linearized workspace's sort mode, or the
+workspace's entries re-sorted by another mode's field) the rows never
+decrease, so that a row which starts and ends inside a warp's range lies in
+no other range and its plain store races with nothing, and only a range's
+first and last rows are added with atomics.  A numpy model of that flush
+then sums to the plain versions.  This file imports no JAX.
 """
+import gc
 import math
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.core import build_csf, build_linearized, random_sparse
 from repro_torch.core import init_factors
+from repro_torch.core.linearized import linearize_coords, ordered_stream
 from repro_torch.kernels import linearized_cuda, mttkrp_cuda, ref
 
 from torch_yelp_cases import YELP, hot_yelp_tensor
@@ -88,12 +90,17 @@ def test_geometries_refuse_empty_launches(call):
 # the streams the kernel walks, in numpy
 # ---------------------------------------------------------------------------
 
-def _words(lin):
-    """The packed index as (pnnz,) uint64: the int32 words hold uint32
-    bits."""
-    hi = lin.hi.numpy().view(np.uint32).astype(np.uint64)
-    lo = lin.lo.numpy().view(np.uint32).astype(np.uint64)
+def _packed(hi, lo):
+    """The packed index as (n,) uint64 from its int32 words, which hold
+    uint32 bits."""
+    hi = hi.numpy().view(np.uint32).astype(np.uint64)
+    lo = lo.numpy().view(np.uint32).astype(np.uint64)
     return (hi << np.uint64(32)) | lo
+
+
+def _words(lin):
+    """A workspace's packed index as (pnnz,) uint64."""
+    return _packed(lin.hi, lin.lo)
 
 
 def _kernel_decode(word, offset, width):
@@ -141,10 +148,11 @@ def _stream(t, mode, kind, sort_mode=None):
             lambda f: ref.ttmc_lin_ref(lin, f, mode))
 
 
-def _segment_schedule(rows, contrib, num_rows, segment):
+def _segment_schedule(rows, contrib, num_rows, segment, atomics=None):
     """The kernel's schedule in numpy: each warp range of ``segment``
     entries sums its runs of equal rows, stores a row that starts and ends
-    inside it, and adds its first and last rows.  Asserts that the rows
+    inside it, and adds its first and last rows (appending, to ``atomics``
+    when given, the number of rows each range adds).  Asserts that the rows
     never decrease and that a stored row is touched by no other range;
     returns the output."""
     assert (np.diff(rows) >= 0).all()
@@ -156,12 +164,16 @@ def _segment_schedule(rows, contrib, num_rows, segment):
         starts = np.flatnonzero(np.r_[True, r[1:] != r[:-1]])
         sums = np.add.reduceat(contrib[s:s + segment], starts)
         touched[r[starts]] += 1
+        added = 0
         for i, (row, v) in enumerate(zip(r[starts], sums)):
             if row == r[0] or i == starts.shape[0] - 1:
                 out[row] += v
+                added += 1
             else:
                 out[row] = v
                 stored.append(row)
+        if atomics is not None:
+            atomics.append(added)
     assert stored and (touched[stored] == 1).all()
     return out
 
@@ -228,7 +240,7 @@ def test_row_segmented_schedule_on_skewed_packed_streams(mode):
 
 
 # ---------------------------------------------------------------------------
-# the linearized workspace's other modes: the unsorted stream, atomic flush
+# the linearized workspace's other modes: the target-ordered stream
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("sort_mode,target,where", [
@@ -258,22 +270,6 @@ def test_stream_fields_decode_every_target(sort_mode, target, where):
                      "straddles" if off + width > 32 else "lo")
 
 
-def _unsorted_schedule(rows, contrib, num_rows, segment):
-    """The off-sort kernel's schedule in numpy: each warp range of
-    ``segment`` entries sums its runs of equal rows in registers and adds
-    every run to the output (the atomic flush), in any order; returns the
-    output and the number of runs."""
-    out = np.zeros((num_rows, contrib.shape[1]))
-    runs = 0
-    for s in range(0, rows.shape[0], segment):
-        r = rows[s:s + segment]
-        starts = np.flatnonzero(np.r_[True, r[1:] != r[:-1]])
-        np.add.at(out, r[starts],
-                  np.add.reduceat(contrib[s:s + segment], starts))
-        runs += starts.shape[0]
-    return out, runs
-
-
 def _contrib(vals, ids, others, mapping):
     """Each stored entry's row of the product: Hadamard (MTTKRP) or
     Kronecker in ascending mode order (TTMc), float64."""
@@ -287,66 +283,136 @@ def _contrib(vals, ids, others, mapping):
     return contrib
 
 
+OFF_SORT = [(0, 1), (0, 2), (1, 0), (1, 2)]
+
+
+def _off_sort_tensor(kind):
+    return (random_sparse(YELP, 30_000, 36, skew=2.0, device="cpu")
+            if kind == "skew" else
+            hot_yelp_tensor(empty_tiles=kind == "hot-empty"))
+
+
+def _ordered(t, sort_mode, target):
+    """The off-sort kernel's view of ``target`` on the workspace sorted by
+    ``sort_mode``: the stream ``off_sort_stream`` hands it (rows, the other
+    modes' ids in ascending mode order, values), decoded over the fields
+    ``stream_fields`` gives, its packed words, and the workspace."""
+    lin = build_linearized(t, block=512, row_tile=128, sort_mode=sort_mode)
+    hi, lo, vals = linearized_cuda.off_sort_stream(lin, target)
+    word = _packed(hi, lo)
+    row, _, fields = linearized_cuda.stream_fields(lin, target)
+    rows, *ids = [_kernel_decode(word, *f) for f in (row, *fields)]
+    return rows, ids, vals.double().numpy(), word, lin
+
+
 @pytest.mark.parametrize("mapping", ["khatri_rao", "kronecker"])
 @pytest.mark.parametrize("kind", ["hot", "hot-empty", "skew"])
-@pytest.mark.parametrize("sort_mode,target", [(0, 1), (0, 2), (1, 0),
-                                              (1, 2)])
-def test_unsorted_schedule_on_the_off_sort_modes(sort_mode, target, kind,
-                                                 mapping):
+@pytest.mark.parametrize("sort_mode,target", OFF_SORT)
+def test_sorted_schedule_on_the_target_ordered_stream(sort_mode, target,
+                                                      kind, mapping):
     """Every off-sort mode of sort modes 0 and 1: hot rows, all-padding
-    blocks, and yelp's dims at skew 2.0, where a hot coordinate recurs in
-    many warp ranges.  The target's rows are not sorted, so a sorted flush
-    would be wrong; adding every run gives the plain MTTKRP and TTMc (the
-    Kronecker columns over the other modes, the sort mode among them)."""
-    t = (random_sparse(YELP, 30_000, 36, skew=2.0, device="cpu")
-         if kind == "skew" else
-         hot_yelp_tensor(empty_tiles=kind == "hot-empty"))
-    rows, ids, vals, num_rows, lin, plain_mttkrp, plain_ttmc = _stream(
-        t, target, "lin", sort_mode=sort_mode)
-    assert lin.sort_mode == sort_mode and num_rows == YELP[target]
-    assert (np.diff(rows) < 0).any()
+    blocks, and yelp's dims at skew 2.0, where a hot row is longer than a
+    warp range.  The workspace's own order puts the target's rows
+    anywhere; over its entries re-sorted by the target, the sorted schedule
+    gives the plain MTTKRP and TTMc (the Kronecker columns over the other
+    modes, the sort mode among them) within 1e-5 (float64 model)."""
+    t = _off_sort_tensor(kind)
+    rows, ids, vals, _, lin = _ordered(t, sort_mode, target)
+    assert lin.sort_mode == sort_mode
+    assert (np.diff(lin.decode(target).numpy()) < 0).any()
     segment = mttkrp_cuda.SEGMENT
-    if kind == "skew":  # a hot coordinate over several warp ranges
-        hot = np.bincount(rows[vals != 0]).argmax()
-        assert np.unique(np.flatnonzero(rows == hot) // segment).size > 2
+    if kind == "skew":  # a hot row longer than a warp range
+        assert np.bincount(rows).max() > segment
     if kind == "hot-empty":  # row tile 1 of the sort mode: one padding block
         pad = lin.block_tile.numpy() == 1
         assert pad.sum() == 1
-        assert (vals.reshape(-1, lin.block)[pad] == 0).all()
+        assert (lin.vals.numpy().reshape(-1, lin.block)[pad] == 0).all()
+    assert rows.shape[0] == t.nnz < lin.padded_nnz  # the padding left out
     ranks = (5, 3, 4) if mapping == "kronecker" else (6, 6, 6)
     f = _factors(t.dims, ranks, 37)
     others = [f[m].double().numpy() for m in range(3) if m != target]
-    got, runs = _unsorted_schedule(rows, _contrib(vals, ids, others, mapping),
-                                   num_rows, segment)
-    # runs of equal rows merge in registers; the padding is one run a tile
-    assert runs <= rows.shape[0]
-    want = plain_ttmc(f) if mapping == "kronecker" else plain_mttkrp(f)
+    got = _segment_schedule(rows, _contrib(vals, ids, others, mapping),
+                            YELP[target], segment)
+    want = (ref.ttmc_lin_ref(lin, f, target) if mapping == "kronecker"
+            else ref.mttkrp_lin_ref(lin, f, target))
     assert got.shape == tuple(want.shape)
     np.testing.assert_allclose(got, want.double().numpy(), rtol=1e-5,
                                atol=1e-5)
 
 
-def test_unsorted_runs_merge_fibers_and_padding():
-    """Sort mode 0 orders mode 1 inside each mode-0 fiber, so a fiber's
-    entries of one mode-1 row are adjacent and merge into one run; the
-    padding decodes to row 0 of every other mode and is one run a stretch.
-    So the atomic flushes are at most the distinct (mode 0, mode 1) pairs,
-    the padding stretches and one split a warp range, fewer than the stored
-    entries."""
-    t = hot_yelp_tensor(empty_tiles=True)
-    rows, ids, vals, _, lin, _, _ = _stream(t, 1, "lin", sort_mode=0)
-    fiber, real = ids[0], vals != 0  # mode 0, the sort mode; padding is 0
-    inside = (fiber[1:] == fiber[:-1]) & real[1:] & real[:-1]
-    assert (np.diff(rows)[inside] >= 0).all()
-    assert all((i[~real] == 0).all() for i in (rows, *ids[1:]))
+@pytest.mark.parametrize("kind", ["hot-empty", "skew"])
+@pytest.mark.parametrize("sort_mode,target", OFF_SORT)
+def test_target_ordered_stream_is_a_stable_permutation(sort_mode, target,
+                                                       kind):
+    """The stream's rows never decrease; its (hi, lo, val) are the
+    tensor's entries packed as the workspace packs them, each once, the
+    padding left out; and within a row it keeps the workspace's order, so
+    the packed words rise (the tensor has no duplicate coordinates)."""
+    t = _off_sort_tensor(kind)
+    rows, _, vals, word, lin = _ordered(t, sort_mode, target)
+    assert (np.diff(rows) >= 0).all()
+    want_word = linearize_coords(t.inds[:t.nnz].numpy(), t.dims, sort_mode)
+    want_vals = t.vals[:t.nnz].double().numpy()
+    got, want = np.lexsort((vals, word)), np.lexsort((want_vals, want_word))
+    np.testing.assert_array_equal(word[got], want_word[want])
+    np.testing.assert_array_equal(vals[got], want_vals[want])
+    same = rows[1:] == rows[:-1]
+    assert same.any() and (word[1:][same] > word[:-1][same]).all()
+    # the workspace's real entries, stably ordered by the target's row
+    ws_word, ws_vals = _words(lin), lin.vals.double().numpy()
+    real = ws_vals != 0
+    order = np.argsort(lin.decode(target).numpy()[real], kind="stable")
+    np.testing.assert_array_equal(word, ws_word[real][order])
+    np.testing.assert_array_equal(vals, ws_vals[real][order])
+
+
+@pytest.mark.parametrize("sort_mode,target", OFF_SORT)
+def test_target_ordered_stream_adds_at_most_two_rows_a_range(sort_mode,
+                                                             target):
+    """At most 2 rows a warp range are added with atomics (its first and
+    last), where the workspace's own order would add every run."""
+    t = _off_sort_tensor("skew")
+    rows, _, _, _, lin = _ordered(t, sort_mode, target)
     segment = mttkrp_cuda.SEGMENT
-    _, runs = _unsorted_schedule(rows, np.ones((rows.shape[0], 1)), YELP[1],
-                                 segment)
-    pairs = np.unique(np.stack([fiber[real], rows[real]]), axis=1).shape[1]
-    stretches = np.count_nonzero(np.diff(np.r_[0, (~real).astype(int)]) == 1)
-    assert pairs < real.sum()  # duplicate rows inside a fiber merged
-    assert runs <= pairs + stretches + -(-rows.shape[0] // segment)
-    assert runs < t.nnz
+    atomics = []
+    _segment_schedule(rows, np.ones((rows.shape[0], 1)), YELP[target],
+                      segment, atomics)
+    assert len(atomics) == -(-rows.shape[0] // segment)
+    assert max(atomics) <= 2 and min(atomics) >= 1
+    unordered = lin.decode(target).numpy()
+    new = np.r_[True, unordered[1:] != unordered[:-1]]
+    new[::segment] = True  # the runs the workspace's order would add
+    assert sum(atomics) * 10 < new.sum()
+
+
+def test_off_sort_stream_is_built_once_per_workspace_and_mode():
+    """The stream is cached by the workspace's identity: a second call on
+    the same workspace and mode builds nothing, another workspace builds
+    its own, and a workspace's streams go with it.  It equals
+    ``ordered_stream``; the sort mode has none."""
+    t = random_sparse((30, 20, 10), 300, 0, device="cpu")
+    lin = build_linearized(t, sort_mode=1)
+    before = linearized_cuda.off_sort_stream.builds
+    first = linearized_cuda.off_sort_stream(lin, 0)
+    assert linearized_cuda.off_sort_stream(lin, 0) is first
+    linearized_cuda.off_sort_stream(lin, 2)
+    linearized_cuda.off_sort_stream(lin, 2)
+    assert linearized_cuda.off_sort_stream.builds == before + 2
+    for got, want in zip(first, ordered_stream(lin, 0)):
+        assert torch.equal(got, want)
+    other = build_linearized(t, sort_mode=1)
+    linearized_cuda.off_sort_stream(other, 0)
+    assert linearized_cuda.off_sort_stream.builds == before + 3
+    with pytest.raises(ValueError, match="is the workspace's sort mode"):
+        linearized_cuda.off_sort_stream(lin, 1)
+    cached = len(linearized_cuda._STREAMS)
+    del lin, first
+    gc.collect()
+    assert len(linearized_cuda._STREAMS) == cached - 1
+    # a CPU workspace gets no stream ahead of a fit: its off-sort modes run
+    # the plain decode and index_add_
+    linearized_cuda.prepare_off_sort([other] * 3, ["linearized_cuda"] * 3)
+    assert linearized_cuda.off_sort_stream.builds == before + 3
 
 
 @pytest.mark.parametrize("wrapper", ["mttkrp_off_sort", "ttmc_off_sort"])
