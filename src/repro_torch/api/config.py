@@ -316,16 +316,18 @@ class ExecConfig:
 class ObsConfig:
     """Observability (``repro_torch.obs``): structured tracing + metrics.
 
-    ``enabled`` turns span recording on — the fit drivers then take their
-    per-routine timed path so spans carry honest durations.  ``trace_dir``
+    ``enabled`` turns span recording on; the fit drivers stay on their
+    plain path, and on the card each span carries its device time
+    (``device_ms``, from CUDA events, with no synchronisation).  ``trace_dir``
     makes the Session export ``trace.jsonl`` (Chrome-trace/Perfetto JSONL;
     read it back with ``python -m repro_torch trace <dir>``) and
     ``metrics.json``
     there after fit/serve.  ``sample_rate`` keeps that fraction of root
     spans (deterministic stride).  ``routines`` picks the traced routine
-    set: ``"fused"`` (sort/mttkrp/epilogue — two syncs per mode, the
-    low-overhead default) or ``"split"`` (the paper's full Table III:
-    ata/inverse/norm/fit, one sync per routine).  ``xla_annotations``
+    set: ``"fused"`` (sort/mttkrp/epilogue on the plain path, no sync,
+    the default) or ``"split"`` (the paper's full Table III:
+    ata/inverse/norm/fit on the timed path, one sync around each
+    routine).  ``xla_annotations``
     (the JAX package's name, kept for the shared schema) mirrors spans into
     ``torch.profiler.record_function``, so they show up in a
     ``torch.profiler`` trace.

@@ -12,9 +12,11 @@ Counterpart of ``repro.core.cpals``.  Per iteration, for each mode n:
 
 PyTorch runs eagerly, so the JAX package's jitted iteration and its buffer
 donation have no counterpart here: the "fused" epilogue is the same chain of
-calls as the per-routine one, timed under one key.  With ``timers=`` the
-driver times each routine with a device synchronisation around it
-(``_iteration_timed``), reproducing the paper's Table III breakdown.
+calls as the per-routine one, timed under one key.  The plain iteration
+opens ``mttkrp`` and ``epilogue`` spans and never synchronises; with
+``timers=`` the driver times each routine with a device synchronisation
+around it (``_iteration_timed``), reproducing the paper's Table III
+breakdown.
 """
 from __future__ import annotations
 
@@ -107,11 +109,14 @@ def build_workspace(t: SparseTensor, plan, *, block: int = 512,
     ws = []
     for p in plan.modes:
         if p.layout == "csf":
-            ws.append(build_csf(t, p.mode, block=p.block,
-                                row_tile=p.row_tile))
+            with obs_trace.span("sort.build", mode=p.mode, layout="csf"):
+                ws.append(build_csf(t, p.mode, block=p.block,
+                                    row_tile=p.row_tile))
         elif p.layout == "lin":
             if lin is None:
-                lin = build_linearized(t, block=p.block, row_tile=p.row_tile)
+                with obs_trace.span("sort.build", layout="lin"):
+                    lin = build_linearized(t, block=p.block,
+                                           row_tile=p.row_tile)
             ws.append(lin)
         elif p.layout == "coo":
             ws.append(t)
@@ -165,17 +170,21 @@ fused_mode_epilogue = _mode_epilogue
 
 def _iteration(ws, factors, grams, norm_x_sq, *, impls, norm_kind,
                with_fit=True):
-    """One ALS iteration; ``impls`` is the plan's per-mode impl tuple."""
+    """One ALS iteration; ``impls`` is the plan's per-mode impl tuple.
+    Each mode's MTTKRP and epilogue run inside spans of those names, which
+    an active tracer records with no synchronisation."""
     factors = tuple(factors)
     grams = tuple(grams)
     lam = None
     fit = _nan(factors[0])
     order = len(factors)
     for n in range(order):
-        m_mat = mttkrp(ws[n], factors, n, impl=impls[n])
-        factors, grams, lam, fit = _mode_epilogue(
-            m_mat, factors, grams, norm_x_sq, mode=n, norm_kind=norm_kind,
-            with_fit=with_fit and n == order - 1)
+        with obs_trace.span("mttkrp", mode=n, impl=impls[n]):
+            m_mat = mttkrp(ws[n], factors, n, impl=impls[n])
+        with obs_trace.span("epilogue", mode=n):
+            factors, grams, lam, fit = _mode_epilogue(
+                m_mat, factors, grams, norm_x_sq, mode=n,
+                norm_kind=norm_kind, with_fit=with_fit and n == order - 1)
     return factors, grams, lam, fit
 
 

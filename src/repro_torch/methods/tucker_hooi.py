@@ -31,7 +31,7 @@ from repro_torch.core.ttmc import ttmc
 from repro_torch.kernels.linearized_cuda import prepare_off_sort
 from repro_torch.obs import trace as obs_trace
 
-from .cp_als import _full_f32_matmul, auto_timers, resolve_ingested
+from .cp_als import _full_f32_matmul, resolve_ingested
 from .iteration import IterationRecorder
 from .registry import DecompState, MethodSpec, make_state, register_method
 
@@ -117,15 +117,20 @@ def _hooi_mode(ws_n, factors, *, mode: int, impl: str, out_rank: int,
                timers: Optional[dict]):
     """TTMc + thin-SVD truncation for one mode: (U_mode, Y_(mode)), U
     copied row-major (the SVD's U is column-major, its leading columns a
-    strided view, and the kernels take contiguous factors)."""
+    strided view, and the kernels take contiguous factors).  The SVD and
+    the copy run in an ``svd`` span."""
     if timers is None:
         y = ttmc(ws_n, factors, mode, impl=impl)
-        u = torch.linalg.svd(y, full_matrices=False)[0]
     else:
         y = _timed(timers, "ttmc", ttmc, ws_n, factors, mode, impl=impl)
-        u = _timed(timers, "svd", torch.linalg.svd, y,
-                   full_matrices=False)[0]
-    return u[:, :out_rank].contiguous(), y
+    with obs_trace.span("svd", mode=mode):
+        if timers is None:
+            u = torch.linalg.svd(y, full_matrices=False)[0]
+        else:
+            u = _timed(timers, "svd", torch.linalg.svd, y,
+                       full_matrices=False)[0]
+        u = u[:, :out_rank].contiguous()
+    return u, y
 
 
 def _core_from_last(u_last: Tensor, y_last: Tensor,
@@ -175,7 +180,10 @@ def tucker_hooi(
     run.  ``timers=`` synchronises the card around each routine and adds
     its seconds under ``"sort"`` (plan + workspace build, with the
     ordered streams of ``linearized_cuda``'s off-sort modes), ``"ttmc"``,
-    ``"svd"`` and ``"fit"``.  An :class:`~repro_torch.ingest.Ingested`
+    ``"svd"`` and ``"fit"``, as does an active tracer with
+    ``routines="split"``; any other tracer leaves the plain path, whose
+    ``ttmc`` (the TTMc and its ``svd`` child) and ``fit`` spans add no
+    synchronisation.  An :class:`~repro_torch.ingest.Ingested`
     ``t`` plans with its ingest-time stats, uses its cached workspaces and
     gets its factors back in the original labels.
     """
@@ -201,12 +209,12 @@ def tucker_hooi(
                                        factor_ranks=ranks)
             ws = build_workspace(t, p)
         # the off-sort modes' ordered streams count under the Sort
-        prepare_off_sort(ws, p.impls)
+        with obs_trace.span("sort.streams"):
+            prepare_off_sort(ws, p.impls)
         return p, ws
 
-    # tracing implies the timed path (see cp_als.auto_timers), so the
-    # "ttmc" and "fit" spans time synchronised work
-    timers, _ = auto_timers(timers)
+    if timers is None and obs_trace.split_routines():
+        timers = {}
     if timers is not None:
         plan, ws = _timed(timers, "sort", _plan_and_build)
     else:
@@ -237,7 +245,7 @@ def tucker_hooi(
             with recorder.iteration(it):
                 factors = list(factors)
                 for n in range(order):
-                    # the TTMc and its thin SVD: one span a mode
+                    # the TTMc and, in a child span, its thin SVD
                     with obs_trace.span("ttmc", mode=n, impl=impls[n]):
                         factors[n], y_last = _hooi_mode(
                             ws[n], tuple(factors), mode=n, impl=impls[n],

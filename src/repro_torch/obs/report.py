@@ -11,7 +11,11 @@ the fit stage, and the per-mode impl split — followed by a dump of
 The routine rows are the span names the fit drivers emit:
 ``sort`` / ``mttkrp`` / ``epilogue`` on the default fused path, plus
 ``ata`` / ``inverse`` / ``norm`` / ``fit`` under ``obs.routines="split"``
-(the paper's full routine set) and ``ttmc`` for Tucker/HOOI.
+(the paper's full routine set) and ``ttmc`` / ``svd`` for Tucker/HOOI.  A
+row's time is its spans' own: a routine span nested in another (Tucker's
+``svd`` in ``ttmc``) counts in its own row only.  Where the spans carry
+``device_ms`` (a traced run on the card), each row gives the card's
+seconds beside the host's.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from .trace import METRICS_FILENAME, TRACE_FILENAME, read_trace
 
 # paper ordering: Table III lists sort, MTTKRP, then the epilogue chain
 ROUTINE_ORDER = ("sort", "mttkrp", "epilogue", "ata", "inverse", "norm",
-                 "fit", "ttmc", "solve")
+                 "fit", "ttmc", "svd", "solve")
 _ROUTINE_LABEL = {"inverse": "inverse (solve)", "norm": "normalize",
                   "fit": "fit calc"}
 
@@ -68,6 +72,19 @@ def routine_breakdown(events: Sequence[dict]) -> dict:
     # one, else the iterations themselves (driver called directly)
     fit_s = stages.get("fit") or iteration_s or wall_s
 
+    # host and device microseconds of the routine spans nested in each
+    # routine span, by the outer span's id
+    by_id = {e["args"]["id"]: e for e in events
+             if "id" in e.get("args", {})}
+    nested: dict = {}
+    for e in events:
+        outer = by_id.get(e.get("args", {}).get("parent"))
+        if (e.get("name") in ROUTINE_ORDER and outer is not None
+                and outer.get("name") in ROUTINE_ORDER):
+            inner = nested.setdefault(outer["args"]["id"], [0.0, 0.0])
+            inner[0] += e.get("dur", 0.0)
+            inner[1] += e["args"].get("device_ms", 0.0)
+
     routines = {}
     for e in events:
         name = e.get("name")
@@ -76,9 +93,13 @@ def routine_breakdown(events: Sequence[dict]) -> dict:
         args = e.get("args", {})
         row = routines.setdefault(name, {"calls": 0, "total_s": 0.0,
                                          "modes": {}})
-        dur_s = e.get("dur", 0.0) / 1e6
+        inner_us, inner_ms = nested.get(args.get("id"), (0.0, 0.0))
+        dur_s = (e.get("dur", 0.0) - inner_us) / 1e6
         row["calls"] += 1
         row["total_s"] += dur_s
+        if "device_ms" in args:
+            row["device_s"] = (row.get("device_s", 0.0)
+                               + (args["device_ms"] - inner_ms) / 1e3)
         mode = args.get("mode")
         if mode is not None:
             cell = row["modes"].setdefault(
@@ -120,9 +141,13 @@ def format_breakdown(summary: dict) -> str:
         lines.append("# no routine spans recorded (was the fit traced?)")
         return "\n".join(lines)
 
+    # the card's seconds beside the host's, where the spans carry them
+    device = any("device_s" in row for row in routines.values())
     lines += ["",
-              "| routine | calls | total_s | % fit | per-mode impl split |",
-              "|---|---|---|---|---|"]
+              "| routine | calls | total_s |"
+              + (" device_s |" if device else "")
+              + " % fit | per-mode impl split |",
+              "|---|---|---|" + ("---|" if device else "") + "---|---|"]
     for name in ROUTINE_ORDER:
         if name not in routines:
             continue
@@ -131,13 +156,18 @@ def format_breakdown(summary: dict) -> str:
         per_mode = " · ".join(
             f"m{m} {cell['impl'] or '-'} {_fmt_s(cell['total_s'])}s"
             for m, cell in sorted(row["modes"].items())) or "-"
+        dev_cell = ""
+        if device:
+            dev_cell = (f" {_fmt_s(row['device_s'])} |" if "device_s" in row
+                        else " - |")
         lines.append(f"| {_ROUTINE_LABEL.get(name, name)} | {row['calls']} "
-                     f"| {_fmt_s(row['total_s'])} | {share:5.1f}% "
+                     f"| {_fmt_s(row['total_s'])} |{dev_cell} {share:5.1f}% "
                      f"| {per_mode} |")
     if summary["unaccounted_s"] > 0 and fit_s > 0:
         share = 100.0 * summary["unaccounted_s"] / fit_s
         lines.append(f"| (untraced) | - | {_fmt_s(summary['unaccounted_s'])} "
-                     f"| {share:5.1f}% | dispatch, init, convergence |")
+                     f"|{' - |' if device else ''} {share:5.1f}% "
+                     f"| dispatch, init, convergence |")
     return "\n".join(lines)
 
 

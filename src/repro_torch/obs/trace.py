@@ -1,7 +1,8 @@
 """Hierarchical spans with Chrome-trace JSONL export.
 
-Counterpart of ``repro.obs.trace``: the same span names, event schema and
-switches.  Design constraints, in order:
+Counterpart of ``repro.obs.trace``: the same span names (and the few of
+``PORT_ONLY_SPANS``), event schema and switches.  Design constraints, in
+order:
 
 1. **Near-zero cost when disabled.**  The module-level :func:`span` is
    what hot code calls (``with obs_trace.span("mttkrp", mode=n): ...``).
@@ -29,9 +30,28 @@ switches.  Design constraints, in order:
    run configuration's schema is shared; ``xla_annotations=False`` turns
    the bridge off, and it is skipped when torch is not importable.
 
-A span measures host time.  The drivers' timed paths synchronise the card
-around each routine, so on those paths a span's duration is the routine's
-device time, not its launch time.
+5. **Device time without synchronisation.**  A span opened while CUDA is
+   initialised also records a pair of timing events on the current stream
+   (the stream the port's kernels launch on), taken from a pool.  Nothing
+   waits for them during the run: when the pool is empty, the pairs the
+   card has already passed are read (a non-blocking query) and go back
+   to it; :meth:`Tracer.events` (and so :meth:`Tracer.export_jsonl`)
+   waits once for the rest.  Each span gets ``args.device_ms``, the
+   card's time from the span's first enqueued work to its last (idle time
+   inside, waiting on the host, included).  Without CUDA a span has no
+   ``device_ms``.
+6. **One clock with the device trace.**  Spans are stamped with
+   ``time.perf_counter_ns`` from the tracer's epoch; the export's
+   ``process_name`` metadata carries ``epoch_unix_ns``, the Unix time of
+   ``ts = 0``, read once beside the epoch.  ``torch.profiler`` places its
+   events in microseconds from its trace start on the Unix clock, so
+   ``ts + profiler_offset_us(epoch_unix_ns, prof)`` puts a span on that
+   timeline (:func:`profiler_offset_us`).
+
+A span's ``ts``/``dur`` is host time, on every path: the drivers'
+plain path adds no synchronisation when traced.  Only the per-routine
+timed path (``timers=``, or ``routines="split"``) synchronises the card
+around each routine.
 """
 from __future__ import annotations
 
@@ -40,6 +60,7 @@ import json
 import os
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager
 from contextvars import ContextVar
 from pathlib import Path
@@ -47,6 +68,10 @@ from typing import Any, Callable, Iterator, Optional
 
 TRACE_FILENAME = "trace.jsonl"
 METRICS_FILENAME = "metrics.json"
+# the spans only the port emits (the JAX package has no counterpart): the
+# SVD under Tucker's ``ttmc`` span, and the Sort's workspace builds and
+# off-sort streams
+PORT_ONLY_SPANS = ("svd", "sort.build", "sort.streams")
 
 # the active tracer (None → module-level span() is a no-op) and the id of
 # the innermost open span in THIS thread/context (None → next span is a
@@ -92,7 +117,7 @@ class Span:
     """One open span; records a complete ("X") trace event on exit."""
 
     __slots__ = ("_tracer", "name", "cat", "attrs", "id", "parent",
-                 "_token", "_start_ns", "_annotation")
+                 "_token", "_start_ns", "_annotation", "_device")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  attrs: dict) -> None:
@@ -111,9 +136,13 @@ class Span:
             self._annotation = tracer._annotation_cls(self.name)
             self._annotation.__enter__()
         self._start_ns = time.perf_counter_ns()
+        self._device = tracer._device_mark()
         return self
 
     def __exit__(self, *exc) -> bool:
+        device = self._device
+        if device is not None:
+            device = (device, self._tracer._device_mark())
         end_ns = time.perf_counter_ns()
         if self._annotation is not None:
             self._annotation.__exit__(*exc)
@@ -132,7 +161,7 @@ class Span:
             "pid": tracer._pid,
             "tid": threading.get_ident(),
             "args": args,
-        })
+        }, device)
         return False
 
 
@@ -142,10 +171,11 @@ class Tracer:
     ``sample_rate`` keeps 1-in-``round(1/rate)`` **root** spans
     (deterministic stride, not random — reruns produce identical traces);
     descendants always follow their root's fate.  ``routines`` is advice
-    to the fit drivers: ``"fused"`` (default) times sort/mttkrp/epilogue,
-    two device syncs per mode, while ``"split"`` opts into the paper's
-    full Table-III routine set (ata / inverse / norm / fit) at the cost of
-    a synchronisation around every routine.  ``xla_annotations`` mirrors
+    to the fit drivers: ``"fused"`` (default) leaves them on their plain
+    path, whose sort / mttkrp / epilogue (Tucker: ttmc / svd / fit) spans
+    add no synchronisation, while ``"split"`` opts into the paper's full
+    Table-III routine set (ata / inverse / norm / fit) at the cost of a
+    synchronisation around every routine.  ``xla_annotations`` mirrors
     each span into ``torch.profiler.record_function`` (the name is the
     JAX package's, kept for the shared configuration schema).
     """
@@ -167,15 +197,24 @@ class Tracer:
         self._lock = threading.Lock()
         self._id_counter = 0
         self._root_counter = 0
-        self._epoch_ns = time.perf_counter_ns()
+        self._epoch_ns, self.epoch_unix_ns = _epoch()
         self._pid = os.getpid()
         self._annotation_cls = None
-        if self.enabled and xla_annotations:
+        # torch.cuda when enabled (the device clock), the timing events free
+        # for reuse, and the recorded spans whose events are not yet read
+        self._cuda = None
+        self._free_events: list = []
+        self._pending: deque = deque()
+        if self.enabled:
             try:
+                import torch
                 from torch.profiler import record_function
-                self._annotation_cls = record_function
             except Exception:  # torch absent: spans still work
-                self._annotation_cls = None
+                pass
+            else:
+                self._cuda = torch.cuda
+                if xla_annotations:
+                    self._annotation_cls = record_function
 
     # -- span construction -------------------------------------------------
 
@@ -212,33 +251,94 @@ class Tracer:
             self._id_counter += 1
             return self._id_counter
 
-    def _record(self, event: dict) -> None:
+    def _device_mark(self):
+        """A timing event recorded on the current CUDA stream, or None
+        where CUDA is not initialised."""
+        cuda = self._cuda
+        if cuda is None or not cuda.is_initialized():
+            return None
+        if not self._free_events:
+            with self._lock:
+                self._resolve(wait=False)
+        try:
+            event = self._free_events.pop()
+        except IndexError:
+            event = cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def _record(self, event: dict, device=None) -> None:
         with self._lock:
             self._events.append(event)
+            if device is not None:
+                self._pending.append((event, *device))
+
+    def _resolve(self, wait: bool = True) -> None:
+        """Write ``device_ms`` into the recorded spans whose events are
+        pending, oldest first, and free their events (lock held).  With
+        ``wait`` each end event is waited for; without, it stops at the
+        first the card has not reached."""
+        pending = self._pending
+        while pending:
+            event, start, end = pending[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            event["args"]["device_ms"] = start.elapsed_time(end)
+            self._free_events += (start, end)
+            pending.popleft()
 
     def events(self) -> list[dict]:
+        """The recorded spans, each with its ``device_ms`` where it has
+        device events (waiting for the card here, once)."""
         with self._lock:
+            self._resolve()
             return list(self._events)
 
     def clear(self) -> None:
         with self._lock:
             self._events.clear()
-        self._epoch_ns = time.perf_counter_ns()
+            for _, start, end in self._pending:
+                self._free_events += (start, end)
+            self._pending.clear()
+        self._epoch_ns, self.epoch_unix_ns = _epoch()
 
     # -- export ------------------------------------------------------------
 
     def export_jsonl(self, path) -> Path:
         """Write the trace as Chrome-trace JSONL (one event per line; a
-        leading ``"M"`` metadata event names the process).  Returns the
-        path written."""
+        leading ``"M"`` metadata event names the process and carries
+        ``epoch_unix_ns``, the clock step of :func:`profiler_offset_us`).
+        Returns the path written."""
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         lines = [json.dumps({
             "name": "process_name", "ph": "M", "pid": self._pid,
-            "tid": 0, "args": {"name": "repro_torch"}})]
+            "tid": 0, "args": {"name": "repro_torch",
+                               "epoch_unix_ns": self.epoch_unix_ns}})]
         lines.extend(json.dumps(e, sort_keys=True) for e in self.events())
         path.write_text("\n".join(lines) + "\n")
         return path
+
+
+def _epoch() -> tuple[int, int]:
+    """A ``perf_counter_ns`` reading and the Unix time (ns) at it: the
+    midpoint of two readings around one ``time_ns``."""
+    before = time.perf_counter_ns()
+    unix = time.time_ns()
+    after = time.perf_counter_ns()
+    return (before + after) // 2, unix
+
+
+def profiler_offset_us(epoch_unix_ns: int, prof) -> float:
+    """Microseconds to add to a span's ``ts`` to place it on the timeline
+    of ``prof``, a finished ``torch.profiler.profile``, whose events'
+    ``time_range`` counts microseconds from its trace start on the Unix
+    clock.  ``epoch_unix_ns`` is :attr:`Tracer.epoch_unix_ns`, or the
+    ``process_name`` event's ``args`` in an exported trace."""
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    return (epoch_unix_ns - start_ns) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -252,10 +352,18 @@ def current_tracer() -> Optional[Tracer]:
 
 
 def tracing() -> bool:
-    """True when an *enabled* tracer is active — drivers use this to
-    switch onto their timed iteration path."""
+    """True when an *enabled* tracer is active."""
     tracer = _ACTIVE.get()
     return tracer is not None and tracer.enabled
+
+
+def split_routines() -> bool:
+    """True when an enabled active tracer asks for the paper's full
+    Table-III routine set (``routines="split"``): the fit drivers then
+    take their synchronised per-routine path."""
+    tracer = _ACTIVE.get()
+    return (tracer is not None and tracer.enabled
+            and tracer.routines == "split")
 
 
 def span(name: str, *, cat: str = "repro", **attrs):

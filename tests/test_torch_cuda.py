@@ -1085,7 +1085,8 @@ def test_session_fit_on_card_launches_k1_and_matches_direct_fit(
         cuda, tmp_path, traced):
     """A Session over a .tnsb on the card with plan policy cuda: K1 on
     every mode of every iteration, and the direct ``fit`` from the same
-    generator seed within the CP limits (traced: the spans' timed path)."""
+    generator seed within the CP limits (traced: the plain path, each
+    ``mttkrp`` span with its ``device_ms``)."""
     from repro_torch.api import (DataConfig, MethodConfig, ObsConfig,
                                  PlanConfig, RunConfig, Session)
 
@@ -1116,6 +1117,47 @@ def test_session_fit_on_card_launches_k1_and_matches_direct_fit(
                  if e["name"] == "mttkrp"]
         assert len(spans) == 12
         assert {e["args"]["impl"] for e in spans} == {"cuda"}
+        assert all(e["args"]["device_ms"] > 0 for e in spans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,rank,names", [
+    ("cp_als", 16, ("sort", "sort.build", "sort.streams", "mttkrp",
+                    "epilogue", "iteration", "fit.dispatch")),
+    ("tucker_hooi", (8, 8, 8), ("sort.build", "sort.streams", "ttmc", "svd",
+                                "fit", "iteration", "fit.dispatch")),
+])
+def test_traced_fit_on_card_times_spans_without_synchronising(
+        cuda, monkeypatch, method, rank, names):
+    """A traced fit on the card (its Sort included) calls
+    ``torch.cuda.synchronize`` nowhere: the spans' CUDA events are read
+    when the trace is.  Then every span carries its ``device_ms``, an
+    outer span's at least its children's, and the routines' are
+    positive."""
+    from repro_torch.obs import Tracer
+
+    t = random_sparse((300, 200, 400), 20_000, 60, device=cuda)
+    fit(ingest(t), rank, method=method, impl="cuda", niters=1)  # builds
+    ing = ingest(t)
+    torch.cuda.synchronize()
+    waits = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (waits.append(None), real(*a, **k)))
+    tracer = Tracer()
+    with tracer.activate():
+        fit(ing, rank, method=method, impl="cuda", niters=3)
+    assert waits == []
+    events = tracer.events()
+    assert set(names) <= {e["name"] for e in events}
+    by_id = {e["args"]["id"]: e for e in events}
+    for e in events:
+        assert e["args"]["device_ms"] >= 0
+        if e["name"] in ("mttkrp", "epilogue", "ttmc", "svd", "iteration"):
+            assert e["args"]["device_ms"] > 0
+        parent = by_id.get(e["args"].get("parent"))
+        if parent is not None:
+            assert parent["args"]["device_ms"] >= e["args"]["device_ms"]
 
 
 @pytest.mark.cuda

@@ -11,7 +11,8 @@ heartbeats, crash dumps and cross-host aggregation.  Thread isolation is
 checked with both threads alive at once, so their ids cannot be reused.
 
 Against the reference: the same config gives the same span names and tree
-(names, parents, attributes) in both packages, and ``trace_report`` the
+(names, parents, attributes) in both packages, less the spans only the
+port emits (``PORT_ONLY_SPANS``), and ``trace_report`` the
 same routine rows (calls and per-mode impls; the times are each run's
 own); the same registry renders the same Prometheus text.
 """
@@ -46,8 +47,10 @@ from repro_torch.obs.recorder import (CRASH_FILENAME, EVENTS_FILENAME,
                                       HEARTBEAT_FILENAME, FlightRecorder,
                                       Heartbeat, current_recorder,
                                       record_event, write_crash_dump)
-from repro_torch.obs.report import routine_breakdown, trace_report
-from repro_torch.obs.trace import METRICS_FILENAME, TRACE_FILENAME
+from repro_torch.obs.report import (format_breakdown, routine_breakdown,
+                                    trace_report)
+from repro_torch.obs.trace import (METRICS_FILENAME, PORT_ONLY_SPANS,
+                                   TRACE_FILENAME)
 
 from test_torch_helpers import both_tensors, np_coo, planted
 
@@ -352,8 +355,8 @@ def test_session_split_routines_trace(tmp_path):
 
 
 def test_traced_fit_equals_untraced_fit(tmp_path):
-    """Tracing takes the timed path; on the CPU its numbers are the
-    untimed path's, bit for bit."""
+    """Tracing leaves the fit on its plain path; its numbers are the
+    untraced fit's, bit for bit."""
     with scoped_registry():
         traced = traced_session(tmp_path).fit()
     plain = Session(RunConfig(method=MethodConfig(rank=4, niters=3)),
@@ -361,6 +364,178 @@ def test_traced_fit_equals_untraced_fit(tmp_path):
     assert torch.equal(traced.fit, plain.fit)
     for a, b in zip(traced.factors, plain.factors):
         assert torch.equal(a, b)
+
+
+PLAIN_PATH_CASES = [
+    ("cp_als", 4, ("sort", "sort.build", "sort.streams", "mttkrp",
+                   "epilogue")),
+    ("cp_nn_hals", 4, ("sort", "sort.build", "sort.streams", "mttkrp",
+                       "epilogue")),
+    ("tucker_hooi", (3, 3, 3), ("sort.build", "sort.streams", "ttmc", "svd",
+                                "fit")),
+]
+
+
+@pytest.mark.parametrize("method,rank,names", PLAIN_PATH_CASES)
+def test_traced_fit_adds_no_synchronisation(monkeypatch, method, rank,
+                                            names):
+    """Under the default routines a traced fit stays on the plain path:
+    ``core.cpals._sync`` is never called, the routine spans are there (one
+    ``mttkrp`` or ``ttmc`` a mode an iteration) and the result is the
+    untraced fit's, bit for bit.  ``routines="split"`` and an explicit
+    ``timers=`` still take the synchronised path."""
+    from repro_torch.core import cpals
+    from repro_torch.methods import fit as methods_fit
+
+    syncs = []
+    real_sync = cpals._sync
+
+    def counting_sync():
+        syncs.append(None)
+        real_sync()
+
+    monkeypatch.setattr(cpals, "_sync", counting_sync)
+    t = lowrank()
+    plain = methods_fit(t, rank, method=method, niters=2)
+    tracer = Tracer(xla_annotations=False)
+    with tracer.activate():
+        traced = methods_fit(t, rank, method=method, niters=2)
+    assert syncs == []
+    seen = [e["name"] for e in tracer.events()]
+    assert set(names) <= set(seen)
+    kernel = "ttmc" if method == "tucker_hooi" else "mttkrp"
+    assert seen.count(kernel) == len(DIMS) * 2
+    assert torch.equal(traced.fit, plain.fit)
+    for a, b in zip(traced.factors, plain.factors):
+        assert torch.equal(a, b)
+    for routines, timers in (("split", None), ("fused", {})):
+        syncs.clear()
+        tracer = Tracer(xla_annotations=False, routines=routines)
+        with tracer.activate():
+            methods_fit(t, rank, method=method, niters=2, timers=timers)
+        assert syncs
+        assert {e["name"] for e in tracer.events()} >= set(names) - {
+            "epilogue"}
+
+
+class _StubEvent:
+    """Stands in for ``torch.cuda.Event``: each ``record`` takes the next
+    tick of a shared clock, ``elapsed_time`` counts the ticks between two
+    records, ``query`` says whether the card has passed the event (as
+    ``ready`` is set), and every construction and wait is logged."""
+
+    log: list = []
+    ticks = [0]
+    ready = True
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.at = None
+        self.log.append("new")
+
+    def record(self, stream=None):
+        self.ticks[0] += 1
+        self.at = self.ticks[0]
+
+    def query(self):
+        return self.ready
+
+    def synchronize(self):
+        self.log.append("synchronize")
+
+    def elapsed_time(self, end):
+        return float(end.at - self.at)
+
+
+@pytest.mark.parametrize("ready", [True, False])
+def test_span_device_ms_resolved_without_waiting_mid_fit(monkeypatch,
+                                                         ready):
+    """With CUDA in use (stubbed), every span records a pair of events and
+    nothing waits for them during the fit.  Pairs the card has passed
+    (``ready``) are read and reused mid-fit, so a fit makes a few events
+    and not two a span; the rest are waited for once, by ``events()``.
+    Every span gets ``device_ms``, an outer span's above its children's,
+    and a second fit makes no new event."""
+    from repro_torch.methods import fit as methods_fit
+
+    _StubEvent.log.clear()
+    waits = []
+    monkeypatch.setattr(_StubEvent, "ready", ready)
+    monkeypatch.setattr(torch.cuda, "Event", _StubEvent)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: waits.append(None))
+    t = lowrank()
+    tracer = Tracer(xla_annotations=False)
+    with tracer.activate():
+        methods_fit(t, 4, method="cp_als", niters=2)
+    made = _StubEvent.log.count("new")
+    assert "synchronize" not in _StubEvent.log and waits == []
+    events = tracer.events()
+    assert len(events) > 10
+    if ready:
+        assert made <= 10
+        assert _StubEvent.log.count("synchronize") < len(events)
+    else:
+        assert made == 2 * len(events)
+        assert _StubEvent.log.count("synchronize") == len(events)
+    by_id = {e["args"]["id"]: e for e in events}
+    for e in events:
+        assert e["args"]["device_ms"] > 0
+        parent = by_id.get(e["args"].get("parent"))
+        if parent is not None:
+            assert parent["args"]["device_ms"] > e["args"]["device_ms"]
+    assert tracer.events() == events  # read once
+    tracer.clear()
+    with tracer.activate():
+        methods_fit(t, 4, method="cp_als", niters=2)
+    assert _StubEvent.log.count("new") == made
+    assert all("device_ms" in e["args"] for e in tracer.events())
+
+
+def test_span_without_cuda_has_no_device_ms():
+    tracer = Tracer(xla_annotations=False)
+    with tracer.activate(), span("host.only"):
+        pass
+    (e,) = tracer.events()
+    assert "device_ms" not in e["args"]
+
+
+def test_exported_spans_lie_on_the_profilers_clock(tmp_path):
+    """The export's clock step (``epoch_unix_ns`` in its metadata, then
+    ``profiler_offset_us``) puts every span inside the
+    ``record_function`` range the bridge opened for it, to 50 us, and the
+    spans' starts a median of less than 50 us after their ranges' (the
+    bridge's own entry).  A wrong step would move them all.  The first
+    fit under the profiler warms the bridge (its first range opens about
+    a millisecond before the span's stamp) and is cleared."""
+    from collections import defaultdict
+
+    from repro_torch.methods import fit as methods_fit
+    from repro_torch.obs.trace import profiler_offset_us
+
+    tracer = Tracer()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tracer.activate():
+            methods_fit(lowrank(), 4, method="cp_als", niters=2)
+            tracer.clear()
+            methods_fit(lowrank(), 4, method="cp_als", niters=2)
+    events = read_trace(tracer.export_jsonl(tmp_path / TRACE_FILENAME))
+    shift = profiler_offset_us(events[0]["args"]["epoch_unix_ns"], prof)
+    ranges = defaultdict(list)
+    for ev in prof.events():
+        ranges[ev.name].append((ev.time_range.start, ev.time_range.end))
+    spans = [e for e in events if e["ph"] == "X"]
+    assert len(spans) >= 20
+    lags = []
+    for e in spans:
+        start = e["ts"] + shift
+        near = min(ranges[e["name"]], key=lambda r: abs(r[0] - start))
+        assert near[0] - 50 <= start
+        assert start + e["dur"] <= near[1] + 50
+        lags.append(start - near[0])
+    assert 0 <= sorted(lags)[len(lags) // 2] < 50
 
 
 def test_serve_latency_histogram_and_qps_gauge(tmp_path):
@@ -477,6 +652,13 @@ def test_streaming_drift_gauge_on_a_fit_drop(monkeypatch):
 # the span tree and trace_report against the reference
 # ---------------------------------------------------------------------------
 
+def _reference_spans(events):
+    """The complete events less the spans only the port emits
+    (``PORT_ONLY_SPANS``), whose children none are."""
+    return [e for e in events
+            if e.get("ph") == "X" and e["name"] not in PORT_ONLY_SPANS]
+
+
 def _tree(events):
     """(name, parent name, attributes) of every complete event, in record
     order: the span tree without ids and times."""
@@ -537,6 +719,8 @@ def test_span_tree_and_routine_rows_match_reference(tmp_path, method, rank,
                 sess.export_obs()
             from repro_torch.obs import report
         events = read_trace(d / "trace" / TRACE_FILENAME)
+        if mod is not japi:
+            events = _reference_spans(events)
         trees.append(_tree(events))
         rows.append(_rows(report.routine_breakdown(events)))
         text = report.trace_report(d / "trace", with_metrics=False)
@@ -583,6 +767,32 @@ def test_routine_breakdown_aggregation():
     assert mt["modes"][1]["impl"] == "cuda"
     assert s["unaccounted_s"] == pytest.approx(5.0)
     assert s == jreport.routine_breakdown(events)
+
+
+def test_routine_breakdown_self_time_and_device_seconds():
+    """A routine span nested in another (Tucker's ``svd`` in ``ttmc``)
+    counts in its own row only, on the host and the card; the table gives
+    the card's seconds where the spans carry ``device_ms``."""
+    us = 1e6
+    events = [
+        {"name": "svd", "ph": "X", "ts": 1 * us, "dur": 3 * us,
+         "args": {"id": 2, "parent": 1, "mode": 0, "device_ms": 2500.0}},
+        {"name": "ttmc", "ph": "X", "ts": 0, "dur": 5 * us,
+         "args": {"id": 1, "mode": 0, "impl": "cuda", "device_ms": 4000.0}},
+        {"name": "fit", "ph": "X", "ts": 5 * us, "dur": 1 * us,
+         "args": {"id": 3}},
+    ]
+    s = routine_breakdown(events)
+    assert s["routines"]["ttmc"]["total_s"] == pytest.approx(2.0)
+    assert s["routines"]["ttmc"]["device_s"] == pytest.approx(1.5)
+    assert s["routines"]["ttmc"]["modes"][0]["total_s"] == pytest.approx(2.0)
+    assert s["routines"]["svd"]["total_s"] == pytest.approx(3.0)
+    assert s["routines"]["svd"]["device_s"] == pytest.approx(2.5)
+    assert "device_s" not in s["routines"]["fit"]
+    table = format_breakdown(s)
+    assert "| routine | calls | total_s | device_s | % fit |" in table
+    assert "| ttmc | 1 | 2.000 | 1.500 |" in table
+    assert "| fit calc | 1 | 1.000 | - |" in table
 
 
 def test_trace_and_metrics_subcommands(tmp_path, capsys):
