@@ -77,7 +77,8 @@ Phases; any failure raises and exits non-zero:
    beside their bounds and beside the factor rows each gathers from L2 and
    their rate (the off-sort one, over phase 4's ordered streams, also
    beside its atomic bytes); then one thin SVD of mode 2's Y (75 000 x
-   256), the library call the fit makes after each TTMc.
+   256) beside the truncation the fit makes after each TTMc
+   (``leading_left_vectors``: the float64 Gram and ``eigh``).
 10. The Tucker path: ``fit(t, (16, 16, 16), method="tucker_hooi",
    impl="cuda", niters=8, timers=...)`` with every count set to 0 just
    before: K1-TTMc launches 3 x 8 = 24 times, nothing else.  Held to the
@@ -2469,7 +2470,8 @@ def main() -> int:
     from repro_torch.kernels import (_build, linearized_cuda, mttkrp_cuda, ops,
                                      ref, syrk_cuda)
     from repro_torch.methods import fit, make_state
-    from repro_torch.methods.tucker_hooi import _init_orthonormal
+    from repro_torch.methods.tucker_hooi import (_init_orthonormal,
+                                                 leading_left_vectors)
     from repro_torch.core.csf import DEFAULT_BLOCK, DEFAULT_ROW_TILE
     from repro_torch.ingest import content_key
     from repro_torch.plan import AutotuneStore, plan_decomposition, tensor_stats
@@ -2948,9 +2950,36 @@ def main() -> int:
     y2 = y_by_mode[2]
     svd_ms = time_ms(torch, lambda: torch.linalg.svd(y2, full_matrices=False),
                      warmup=1, reps=3)
+    kept = {}
+
+    def truncate():
+        kept["out"] = leading_left_vectors(y2, TUCKER_RANKS[2])
+
+    trunc_ms = time_ms(torch, truncate, warmup=1, reps=3)
+    u2, path = kept["out"]
+    if path != "gram":
+        raise AssertionError(f"mode 2's truncation took path {path!r}, "
+                             "expected 'gram'")
+    # the share of Y's best rank-R energy each basis misses, in float64
+    # (the judge's truncation_gap)
+    y64 = y2.double()
+    best = float(torch.linalg.eigvalsh(y64.T @ y64)[-TUCKER_RANKS[2]:].sum())
+
+    def energy_gap(u):
+        q = torch.linalg.qr(u.double())[0]
+        return abs(best - float(((q.T @ y64) ** 2).sum())) / best
+
+    gap = energy_gap(u2)
+    svd_gap = energy_gap(torch.linalg.svd(y2, full_matrices=False)[0]
+                         [:, :TUCKER_RANKS[2]])
     print(f"[svd] mode 2 Y {tuple(y2.shape)}: torch.linalg.svd ms="
-          f"{svd_ms:.4f} (median of 3 after 1 warm-up)")
-    del y_by_mode, y2, got
+          f"{svd_ms:.4f}, the fit's truncation (leading_left_vectors, "
+          f"path={path}) ms={trunc_ms:.4f} (medians of 3 after 1 warm-up);"
+          f" energy gap {gap:.3e} (the SVD's {svd_gap:.3e})")
+    if not gap <= 1e-7:
+        raise AssertionError(f"mode 2's truncation misses {gap:.3e} of the "
+                             "best rank-R energy, above 1e-7")
+    del y_by_mode, y2, got, u2, y64
 
     # --- 10. the Tucker path ------------------------------------------------
     tinit = _init_orthonormal(t.dims, TUCKER_RANKS, args.seed + 4,

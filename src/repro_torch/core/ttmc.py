@@ -7,9 +7,10 @@ Kronecker one:
 
     Y_(n)[i, :] = sum_{stored entries with i_n == i} x * kron_{m != n} U_m[i_m, :]
 
-an (I_n, prod_{m != n} R_m) matrix whose thin SVD gives the updated factor
-(``repro_torch.methods.tucker_hooi``).  Every MTTKRP strategy carries over
-with the Hadamard row product replaced by the Kronecker one:
+an (I_n, prod_{m != n} R_m) matrix whose leading left singular subspace
+gives the updated factor (``repro_torch.methods.tucker_hooi``).  Every
+MTTKRP strategy carries over with the Hadamard row product replaced by the
+Kronecker one:
 
 ==================  =========================================================
 impl                what it runs

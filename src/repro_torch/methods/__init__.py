@@ -5,7 +5,8 @@
     driver.py       fit(x, rank, method=...) capability-checked dispatch
     cp_als.py       SPLATT-style CP-ALS (the paper's Algorithm 1)
     cp_nn_hals.py   nonnegative CP via hierarchical ALS
-    tucker_hooi.py  sparse Tucker via chain-of-modes TTMc + thin SVD
+    tucker_hooi.py  sparse Tucker via chain-of-modes TTMc + truncation
+                    to Y's leading subspace (float64 Gram + eigh)
     streaming.py    online CP-ALS over ingest.reader chunk batches
 
 Importing this package registers all four methods, in the JAX package's

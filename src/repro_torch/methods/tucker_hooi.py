@@ -6,17 +6,26 @@ orthogonal iteration) alternates, for each mode n:
     Y_(n)  =  mode-n TTMc of X against every other mode's factor
               (``repro_torch.core.ttmc``, planned per mode by
               ``plan_decomposition(kernel="ttmc")``)
-    U_n    =  leading R_n left singular vectors of Y_(n)   (thin SVD)
+    U_n    =  leading R_n left singular vectors of Y_(n)
+              (:func:`leading_left_vectors`: from the float64 Gram of Y's
+              smaller side and its eigenvectors)
 
 and recovers the core from the final TTMc, with no extra pass over X:
 
     G_(N-1)  =  U_{N-1}^T Y_(N-1)
 
 With orthonormal factors ``||X - Xhat||^2 = ||X||^2 - ||G||^2``, so the fit
-comes from the core too, and it does not fall across sweeps.  The SVD and
-the small products around it are dense library calls (cuSOLVER, cuBLAS on
-the card), as the reference leaves them to XLA; the TTMc is the sparse
-kernel.
+comes from the core too, and it does not fall across sweeps.  The
+truncation needs only Y's leading R_n-dimensional subspace, not its whole
+thin SVD: the W x W Gram ``Y^T Y`` (W the Kronecker width, I x I ``Y Y^T``
+where the mode is the shorter side) is accumulated in float64 from row
+blocks of Y, its top R_n eigenpairs give ``U = Y V Lambda^{-1/2}``, and one
+Cholesky-QR pass in float64 makes U orthonormal again.  Where Y's shape
+leaves no such cut, the Gram is numerically rank-deficient or the Cholesky
+factorisation fails, the thin SVD decides, as the reference's does.  These
+and the small products around
+them are dense library calls (cuBLAS, cuSOLVER on the card), as the
+reference leaves them to XLA; the TTMc is the sparse kernel.
 """
 from __future__ import annotations
 
@@ -30,12 +39,13 @@ from repro_torch.core.cpals import _timed, build_workspace
 from repro_torch.core.ttmc import ttmc
 from repro_torch.kernels.linearized_cuda import prepare_off_sort
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import get_registry
 
 from .cp_als import _full_f32_matmul, resolve_ingested
 from .iteration import IterationRecorder
 from .registry import DecompState, MethodSpec, make_state, register_method
 
-__all__ = ["TuckerDecomp", "tucker_hooi"]
+__all__ = ["TuckerDecomp", "leading_left_vectors", "tucker_hooi"]
 
 Tensor = torch.Tensor
 
@@ -113,23 +123,114 @@ def _init_orthonormal(dims: Sequence[int], ranks: Sequence[int],
         for d, r in zip(dims, ranks))
 
 
+# The Gram route gives way to the SVD where the R-th eigenvalue of the
+# float64 Gram is at most this share of the first.  The Gram's own rounding
+# is about W * eps64 * lambda_1 (2.8e-14 lambda_1 at W = 256), and the
+# eigenvector error that U = Y V Lambda^{-1/2} carries into U's columns
+# grows as eps64 * lambda_1 / lambda_R: at 1e-10 it is about 1e-6, which the
+# Cholesky-QR pass takes out; much below, the Gram no longer resolves the
+# R-th direction (an exactly rank-deficient float32 Y puts its surplus
+# eigenvalues at the rounding level, near 1e-15 lambda_1).
+RANK_DEFICIENT = 1e-10
+# elements of Y converted to float64 at a time: 64 MB blocks, so no float64
+# copy of a whole Y (154 MB for yelp's mode 2 at W = 256) is made, and few
+# blocks to launch (three there; at 16 MB the blocks' launches held the
+# card idle)
+_BLOCK_ELEMENTS = 1 << 23
+
+
+def _svd_left(y: Tensor, rank: int) -> Tensor:
+    """The leading ``rank`` left singular vectors of ``y`` from its thin
+    SVD, row-major (LAPACK's U is column-major, its leading columns a
+    strided view, and the kernels take contiguous factors)."""
+    return torch.linalg.svd(y, full_matrices=False)[0][:, :rank].contiguous()
+
+
+def _row_blocks(a: Tensor):
+    """``a``'s rows a block at a time (each converted to float64 by its
+    caller, one block alive at a time)."""
+    step = max(1, _BLOCK_ELEMENTS // max(1, a.shape[1]))
+    for i in range(0, a.shape[0], step):
+        yield i, a[i:i + step]
+
+
+def _gram64(a: Tensor) -> Tensor:
+    """``a^T a`` accumulated in float64."""
+    g = torch.zeros((a.shape[1], a.shape[1]), dtype=torch.float64,
+                    device=a.device)
+    for _, rows in _row_blocks(a):
+        block = rows.double()
+        g.addmm_(block.T, block)
+        del block  # before the next block is converted
+    return g
+
+
+def _cholesky_qr(y: Tensor, v: Tensor, lam: Tensor) -> tuple[Tensor, Tensor]:
+    """``U = Y V Lambda^{-1/2}`` in float64, then one Cholesky-QR pass
+    (``U L^{-T}``, L the Cholesky factor of ``U^T U``), which keeps
+    ``U^T U`` at the identity however far lambda_R lies below lambda_1;
+    with the factorisation's ``info`` (0 where it succeeded), unread."""
+    scale = v / torch.sqrt(lam)
+    u = torch.empty((y.shape[0], v.shape[1]), dtype=torch.float64,
+                    device=y.device)
+    for i, rows in _row_blocks(y):
+        torch.mm(rows.double(), scale, out=u[i:i + rows.shape[0]])
+    chol, info = torch.linalg.cholesky_ex(u.T @ u)
+    return torch.linalg.solve_triangular(chol.T, u, upper=True,
+                                         left=False), info
+
+
+def leading_left_vectors(y: Tensor, rank: int) -> tuple[Tensor, str]:
+    """An orthonormal basis of the leading ``rank``-dimensional left
+    singular subspace of ``y`` (I x W), as a contiguous (I, rank) tensor of
+    ``y``'s dtype, and the path that gave it: ``"gram"`` or ``"svd"``.
+
+    ``"gram"``: the Gram of ``y``'s smaller side in float64 and its top
+    eigenpairs; where I >= W, U from :func:`_cholesky_qr`; where I < W,
+    the eigenvectors of ``Y Y^T`` are U.  ``"svd"``: the thin SVD, where
+    the shape leaves no cut (W < rank or I <= rank: U is then what the SVD
+    gives, as in the reference), the Gram is numerically rank-deficient
+    (lambda_R <= ``RANK_DEFICIENT`` lambda_1, a zero Y among them) or the
+    Cholesky factorisation fails.  The spectrum and the factorisation are
+    read in one synchronisation.  Counted in the process registry as
+    ``tucker.truncation.gram`` / ``tucker.truncation.svd``."""
+    rows, width = y.shape
+    if width >= rank and rows > rank:
+        # the Gram of the smaller side: where W >> I a W x W Gram would
+        # outgrow Y (order 4 at ranks 32: W = 32 768, 8.6 GB in float64)
+        tall = rows >= width
+        # eigh on Y's device: at W = 256 an H100 takes 2.1-2.3 ms, its
+        # host (four threads) 10-14 ms with the copies
+        lam, v = torch.linalg.eigh(_gram64(y if tall else y.T))
+        lam, v = lam[-rank:].flip(0), v[:, -rank:].flip(1)
+        resolved = lam[-1] > RANK_DEFICIENT * lam[0]
+        u = v
+        if tall:
+            u, info = _cholesky_qr(y, v, lam)
+            resolved &= info == 0
+        if bool(resolved):
+            get_registry().counter("tucker.truncation.gram").inc()
+            return u.to(y.dtype).contiguous(), "gram"
+    get_registry().counter("tucker.truncation.svd").inc()
+    return _svd_left(y, rank), "svd"
+
+
 def _hooi_mode(ws_n, factors, *, mode: int, impl: str, out_rank: int,
                timers: Optional[dict]):
-    """TTMc + thin-SVD truncation for one mode: (U_mode, Y_(mode)), U
-    copied row-major (the SVD's U is column-major, its leading columns a
-    strided view, and the kernels take contiguous factors).  The SVD and
-    the copy run in an ``svd`` span."""
+    """TTMc + truncation for one mode: (U_mode, Y_(mode)), U row-major.
+    The truncation (:func:`leading_left_vectors`) runs in an ``svd`` span
+    that carries the ``path`` it took."""
     if timers is None:
         y = ttmc(ws_n, factors, mode, impl=impl)
     else:
         y = _timed(timers, "ttmc", ttmc, ws_n, factors, mode, impl=impl)
-    with obs_trace.span("svd", mode=mode):
+    with obs_trace.span("svd", mode=mode) as sp:
         if timers is None:
-            u = torch.linalg.svd(y, full_matrices=False)[0]
+            u, path = leading_left_vectors(y, out_rank)
         else:
-            u = _timed(timers, "svd", torch.linalg.svd, y,
-                       full_matrices=False)[0]
-        u = u[:, :out_rank].contiguous()
+            u, path = _timed(timers, "svd", leading_left_vectors, y,
+                             out_rank)
+        sp.annotate(path=path)
     return u, y
 
 
@@ -245,7 +346,7 @@ def tucker_hooi(
             with recorder.iteration(it):
                 factors = list(factors)
                 for n in range(order):
-                    # the TTMc and, in a child span, its thin SVD
+                    # the TTMc and, in a child span, its truncation
                     with obs_trace.span("ttmc", mode=n, impl=impls[n]):
                         factors[n], y_last = _hooi_mode(
                             ws[n], tuple(factors), mode=n, impl=impls[n],
@@ -291,5 +392,6 @@ register_method(MethodSpec(
     supports_order_gt3=True,
     monotone_fit=True,
     description="sparse Tucker via HOOI: per-mode chain-of-modes TTMc + "
-                "thin-SVD truncation; core recovered from the final TTMc",
+                "truncation to the leading left singular subspace; core "
+                "recovered from the final TTMc",
 ))

@@ -12,6 +12,8 @@ measures but keeps scattered and internal:
   ``fit.iteration_ms`` (histogram)            — fit trajectory
 * ``serve.query_ms`` (histogram)              — serve-query latency,
   summarized with p50/p90/p99
+* ``tucker.truncation.gram`` / ``tucker.truncation.svd`` — HOOI
+  truncations by the float64 Gram or by the thin SVD (port only)
 
 Deliberately dependency-free (no torch) so any module, the straggler
 monitor (``repro_torch.dist.straggler``) among them, can feed it without

@@ -69,8 +69,8 @@ from typing import Any, Callable, Iterator, Optional
 TRACE_FILENAME = "trace.jsonl"
 METRICS_FILENAME = "metrics.json"
 # the spans only the port emits (the JAX package has no counterpart): the
-# SVD under Tucker's ``ttmc`` span, and the Sort's workspace builds and
-# off-sort streams
+# truncation under Tucker's ``ttmc`` span (named ``svd``, with the ``path``
+# it took), and the Sort's workspace builds and off-sort streams
 PORT_ONLY_SPANS = ("svd", "sort.build", "sort.streams")
 
 # the active tracer (None → module-level span() is a no-op) and the id of
@@ -93,6 +93,9 @@ class _NullSpan:
     def __exit__(self, *exc) -> bool:
         return False
 
+    def annotate(self, **attrs) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -111,6 +114,9 @@ class _DroppedSpan:
     def __exit__(self, *exc) -> bool:
         _PARENT.reset(self._token)
         return False
+
+    def annotate(self, **attrs) -> None:
+        pass
 
 
 class Span:
@@ -138,6 +144,11 @@ class Span:
         self._start_ns = time.perf_counter_ns()
         self._device = tracer._device_mark()
         return self
+
+    def annotate(self, **attrs) -> None:
+        """Add attributes known only inside the span (they land in
+        ``args`` beside those it was opened with)."""
+        self.attrs.update(attrs)
 
     def __exit__(self, *exc) -> bool:
         device = self._device

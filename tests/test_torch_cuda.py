@@ -958,6 +958,50 @@ def test_off_sort_kernels_build_the_stream_once_on_card(cuda, kernel):
     assert linearized_cuda.off_sort_stream.builds == builds + 2
 
 
+@pytest.mark.cuda
+def test_tucker_truncation_takes_the_gram_path_on_card(cuda, monkeypatch):
+    """A ``cuda`` Tucker fit at ranks 16^3 on a yelp-shaped tensor truncates
+    every mode of every sweep by the float64 Gram; each sweep's fit is
+    within 1e-5 of the same fit truncated by the thin SVD (the routine's
+    fallback), and its peak memory is no higher."""
+    import importlib
+
+    from repro_torch.methods.tucker_hooi import _init_orthonormal
+    from repro_torch.obs import scoped_registry
+
+    tucker = importlib.import_module("repro_torch.methods.tucker_hooi")
+    t = _segment_tensor("hot", cuda)
+    ranks, niters = (16, 16, 16), 8
+    zero = torch.tensor(0.0, device=cuda)
+    state = make_state(_init_orthonormal(t.dims, ranks, 41, torch.float32,
+                                         cuda), {}, zero, zero, 0)
+
+    def run(n):
+        fits = []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fit(t, ranks, method="tucker_hooi", impl="cuda", niters=n,
+            state=state, checkpoint_cb=lambda s: fits.append(float(s.fit)))
+        torch.cuda.synchronize()
+        return fits, torch.cuda.max_memory_allocated() - base
+
+    def by_svd(y, rank):
+        return tucker._svd_left(y, rank), "svd"
+
+    run(1)  # warm-up: builds, library handles and workspaces
+    with scoped_registry() as registry:
+        gram_fits, gram_peak = run(niters)
+        assert registry.counter("tucker.truncation.gram").value == 3 * niters
+        assert registry.counter("tucker.truncation.svd").value == 0
+    monkeypatch.setattr(tucker, "leading_left_vectors", by_svd)
+    run(1)
+    svd_fits, svd_peak = run(niters)
+    assert len(gram_fits) == len(svd_fits) == niters
+    np.testing.assert_allclose(gram_fits, svd_fits, rtol=0, atol=1e-5)
+    assert gram_peak <= svd_peak
+
+
 # ---------------------------------------------------------------------------
 # the ingested path on the card: ingest, HALS on the cached workspaces,
 # checkpoints of card tensors, streaming from a .tnsb
